@@ -1,24 +1,30 @@
 """Smoke run of urmap_tpu_torch on one CUDA card: builds the kernels,
 holds each against its plain PyTorch version, maps a chromosome-scale
-single-end slice through the port's Mapper, and checks the result.
+read set through the port's Mapper on the aligned and on the row128
+table layout and a paired read set through its PairedMapper, and checks
+the results.
 
-    python3 chip_smoke.py [--seed 0] [--reads 131072]
+    python3 chip_smoke.py [--seed 0] [--reads 131072] [--pairs 65536]
 
 Phases, each printing one JSON line:
   1. device  — the card (torch and nvidia-smi); exits 1 without CUDA;
-  2. build   — nvcc builds csrc/*.cu for sm_90a;
+  2. build   — nvcc builds csrc/*.cu for sm_90a, one per source;
   3. kernels — B3 seed slots, B4 vote, B1 banded DP (plain and clip
-               mode), B6 traceback records and B7 traceback bits at the
-               slice's shapes, kernel vs plain version on the card,
-               exact equality (integer outputs, tolerance 0), median
-               times of synchronised runs beside each kernel's bound;
+               mode), B5 dense-row fetch (row entry at W = 128, window
+               entry at W = 256 and 384, the literal rotate), B1' the
+               byte-genome DP (plain and clip mode), B6 traceback
+               records and B7 traceback bits at the paths' shapes,
+               kernel vs plain version on the card, exact equality
+               (integer outputs, tolerance 0), median times of
+               synchronised runs beside each kernel's bound;
   4. slice   — a 46,709,983-base synthetic genome (GRCh38 chr21's
                length, with N runs; 1% SNPs, 5% indels, 1% adapter
                tails, 1% junk) → FASTA → index (port host build) →
                planted FASTQ → FastqReader → Mapper(cuda), the default
                MapConfig with the device traceback on → run_stream →
                cigars_nm_blob (replaying the device records) →
-               format_single_end → SAM; checks kernel launch counts
+               format_single_end → SAM, over the first half of the
+               reads on the aligned layout; checks kernel launch counts
                (tb_dops = batches), zero plain-version calls, that at
                least 0.9 of the gapped unclipped winners decode from
                device records (the fallbacks printed by reason), the
@@ -29,7 +35,24 @@ Phases, each printing one JSON line:
   5. cpu     — the first 4096 reads again: on the card with the
                traceback on and with tb_bits=False (same SAM bytes), and
                on a CPU Mapper (plain versions) with the traceback on:
-               MapResult, tb dict and SAM bytes must be identical.
+               MapResult, tb dict and SAM bytes must be identical;
+  6. row128  — the same index prepared in the dense-row layout with
+               packed offsets (URMAP_ROW128_BYTES forces it), all reads:
+               the slice's checks, every table fetch through kernel B5,
+               and MapResult, live traceback records and SAM bytes equal
+               to the aligned slice's on the reads both mapped;
+  7. paired  — planted FR pairs (150 bp, fragments of 200-600, 1% SNPs,
+               5% with a small indel, 5% with one mate mutated every
+               15th base so that only the rescue scan places it, 1%
+               junk) through PairedMapper over the row128 tables →
+               cigars_nm_blob per mate → format_paired: correct mates,
+               proper pairs, rescued mates, the W = 384 fetch launched,
+               tb_dops = batches, per-stage times, and PairResult and
+               SAM bytes equal to a CPU PairedMapper's on the first
+               2048 pairs;
+  8. semiglobal — B1' on real work: the first 4096 winners of phase 6
+               re-aligned over the byte genome at their POS, kernel
+               against plain version on the card, exact.
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and
 the final {"ok": true, ...} line. Any failed check exits non-zero.
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -51,9 +74,12 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHR21_LEN = 46_709_983          # GRCh38 chr21 (BASELINE.json config 3)
 READ_LEN = 150
-B = 16384                        # reads per batch
+B = 16384                        # reads per batch (pairs: B // 2)
 K, Q, P, V, HW, L_MAX = 24, 8, 16, 8, 16, 160
 TB_C = 2048                      # traceback lanes per batch (tb_cols)
+RESCUE_W = 1200                  # MapConfig.rescue_window
+N_CPU = 4096                     # reads mapped again on the CPU
+N_CPU_PAIRS = 2048
 # The card's peaks for the kernels' bounds (NVIDIA's H100 SXM data
 # sheet): 3.35 TB/s of HBM; 67 TFLOP/s of float32 outside the tensor
 # cores = 128 lanes per SM at 2 flops per FMA, and an SM has 64 lanes
@@ -234,9 +260,65 @@ def kernel_inputs(rng, n_reads: int, n_dp: int, n_clip: int):
             seq[i, : lens[i]] = comp[reads[i, : lens[i]][::-1]]
         return win, seq, lens, strand
 
+    def fetch_inputs(rows):
+        """A [rows, 128] table (SENTINEL pads between short runs) and
+        starts for the row entry (anywhere, past the end too) and the
+        window entry (both ends, negative, past the end)."""
+        table = rng.integers(-(1 << 31), 1 << 31, size=(rows, 128),
+                             dtype=np.int64).astype(np.int32)
+        table[rng.random(table.shape) < 0.05] = SENTINEL
+        M = rows * 128
+
+        def starts(n):
+            st = rng.integers(0, M, size=n).astype(np.int64)
+            st[:8] = [0, 127, 128, M - 1, M, M + 12345, M - 16, 1]
+            return st
+
+        def wstarts(n, width):
+            st = 2 * rng.integers(0, M // 2, size=n).astype(np.int64)
+            st[:8] = [0, M - width, M - width + 2, M, M + 999, -2, -4096,
+                      126]
+            return st
+
+        return table, starts, wstarts
+
+    def sg_inputs(n, G=8_000_000):
+        """B1' inputs: a byte genome, candidates (the ends included) and
+        reads drawn near them with indels, random tails and junk."""
+        g = rng.integers(0, 4, size=G).astype(np.uint8)
+        g[rng.random(G) < 0.002] = 4
+        cand = rng.integers(0, G - L_MAX - 64, size=n).astype(np.int32)
+        cand[:8] = [0, 3, -5, -HW - 40, G - L_MAX, G - 20, G + 100, 1]
+        reads = np.full((n, L_MAX), 5, np.uint8)
+        lens = np.full(n, READ_LEN, np.int32)
+        lens[::16] = L_MAX
+        lens[1::64] = rng.integers(0, K, len(lens[1::64]))
+        lens[2::512] = 0
+        shift = rng.integers(-HW + 1, HW, size=n)
+        for i in range(n):
+            s = int(np.clip(int(cand[i]) + shift[i], 0, G - L_MAX - 16))
+            r = g[s : s + L_MAX + 8].copy()
+            kind = i % 8
+            if kind == 1:
+                o, d = rng.integers(8, 140), rng.integers(1, 9)
+                r = np.concatenate([r[:o], r[o + d :]])
+            elif kind == 2:
+                o, d = rng.integers(8, 140), rng.integers(1, 9)
+                r = np.concatenate([r[:o], rng.integers(0, 4, d), r[o:]])
+            elif kind == 3:
+                r = rng.integers(0, 4, L_MAX)
+            elif kind == 4:
+                t = rng.integers(30, 76)
+                r[READ_LEN - t : READ_LEN] = rng.integers(0, 4, t)
+            r = r[:L_MAX].astype(np.uint8)
+            reads[i] = np.where(r == 4, 5, r)
+        reads[np.arange(L_MAX)[None, :] >= lens[:, None]] = 5
+        return g, cand, reads, lens
+
     return {"codes": codes, "lengths": lengths, "cand": cand,
             "dp": dp_inputs(n_dp, 0, 0), "clip": dp_inputs(n_clip, 30, 50),
-            "tb": tb_inputs(TB_C)}
+            "tb": tb_inputs(TB_C), "fetch": fetch_inputs(1 << 18),
+            "sg": sg_inputs(n_dp)}
 
 
 def nbytes(tensors) -> int:
@@ -247,16 +329,20 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     """Each kernel against its plain version on ``dev`` → per-kernel
     records: max_abs_err, ms, plain_ms and the bound. ``bound_ms`` is
     the larger of the bytes the function must move (each input read
-    once, each output written once) over the HBM rate and the int32
-    ALU instructions these inputs need at the least over that pipe's
-    rate; the counts per unit of work are stated beside each case. ``library_ms`` is None throughout: no single
-    PyTorch call computes the seed slots, the vote, the banded DP or
-    the traceback DP."""
+    once, each output written once; for the table fetches the words
+    these starts use, not the whole table) over the HBM rate and the
+    int32 ALU instructions these inputs need at the least over that
+    pipe's rate; the counts per unit of work are stated beside each
+    case. ``library_ms`` times the nearest single PyTorch call for the
+    three entries of B5 (an indexed ``unfold`` view, ``torch.gather``);
+    it is None elsewhere: no single PyTorch call computes the seed
+    slots, the vote, the banded DP or the traceback DP."""
     import torch
 
     from urmap_tpu_torch.config import ScoreConfig
     from urmap_tpu_torch import genome_pack as gpk
-    from urmap_tpu_torch.kernels import banded_dp, seed_slots, tb_dp, vote
+    from urmap_tpu_torch.kernels import (banded_dp, lane_rotate, seed_slots,
+                                         tb_dp, vote)
     from urmap_tpu_torch.map import dp as dpmod
     from urmap_tpu_torch.map import seed as seedmod
     from urmap_tpu_torch.map import tb as tbmod
@@ -273,7 +359,8 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     rp, rn = gpk.read_words_from_upload(put(pk), put(nm), lens, nw)
     cand = put(x["cand"])
     W = 2 * HW + 1
-    # name → (kernel, plain version, input tensors, integer instructions)
+    # name → (kernel, plain version, input tensors, integer instructions
+    # [, bytes where they are not the inputs' and outputs' sizes])
     cases = {
         # per (read, seed): three words of each plane funnel-shifted, a
         # 2-bit lane reversal, the N test and murmur3-fmix32: ~40
@@ -307,6 +394,97 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
             lambda w=w, r=r, ln=ln, clip=clip: dpmod.banded_from_windows(
                 w, r, ln, hw=HW, sc=sc, clip_open=clip),
             (w, r, ln), rows * (W * per_cell + 3))
+    # B1': B1's cells, a clamp (min, max: 2) for each window byte it
+    # loads (W + one per row) and for each base of the ungapped
+    # re-read, whose compare and select add 2 more per row. It must
+    # read L + 2*hw genome bytes per candidate, not the whole genome.
+    g, sg_cand, sg_reads, sg_lens = (put(a) for a in x["sg"])
+    sg_rows = int(sg_lens.clamp(0, L_MAX).sum())
+    sg_n = sg_cand.shape[0]
+    sg_bytes = sg_n * ((L_MAX + 2 * HW) + L_MAX + 4 + 4 + 16)
+    for name, clip, per_cell in (("banded_semiglobal", None, 6),
+                                 ("banded_semiglobal_clip", sc.clip_open,
+                                  7.5)):
+        cases[name] = (
+            lambda clip=clip: banded_dp.banded_semiglobal(
+                g, sg_cand, sg_reads, sg_lens, hw=HW, sc=sc, clip_open=clip),
+            lambda clip=clip: dpmod.banded_semiglobal(
+                g, sg_cand, sg_reads, sg_lens, hw=HW, sc=sc, clip_open=clip),
+            (g, sg_cand, sg_reads, sg_lens),
+            sg_rows * (W * per_cell + 3 + 2 + 4) + sg_n * W * 2, sg_bytes)
+    # B5 computes nothing: bytes. One thread per output word reads only
+    # the words it keeps, so the function must move the starts, every
+    # used word once in and once out. ``rows_touched`` (the 512-byte
+    # table rows these starts reach) is information only. ``library``
+    # holds the one PyTorch call that comes closest to each entry, timed
+    # as library_ms and used nowhere in the port: an indexed ``unfold``
+    # view for the fetches (its index clamped beforehand; the row entry's
+    # SENTINEL fill past a row's end left out), ``torch.gather`` with the
+    # index made beforehand for the rotate.
+    table_np, starts_of, wstarts_of = x["fetch"]
+    table = put(table_np)
+    R = table.shape[0]
+    fetch_shapes = {}
+    library = {}
+
+    def fetch_case(name, width, st, window):
+        n = st.shape[0]
+        if window:
+            s = st.clamp(0, R * 128 - width)
+            rows = (s >> 7)[:, None] + torch.arange(
+                -(-width // 128) + 1, device=dev)[None, :]
+            touched = torch.unique(
+                rows[rows <= ((s + width - 1) >> 7)[:, None]]).numel()
+            used = n * width
+            kern, plain = (lane_rotate.row128_window_fetch,
+                           gpk.row128_window_fetch)
+        else:
+            s = st.clamp(max=R * 128 - width)
+            touched = torch.unique((st >> 7).clamp(max=R - 1)).numel()
+            used = int((128 - (st & 127)).clamp(max=width).sum())
+            kern, plain = lane_rotate.row128_fetch, seedmod._row128_fetch
+        cases[name] = (lambda: (kern(table, st, width),),
+                       lambda: (plain(table, st, width),), (table, st), 0,
+                       n * 8 + used * 4 + n * width * 4)
+        views = table.view(-1).unfold(0, width, 1)
+        library[name] = lambda: (views[s],)
+        if window:
+            check(torch.equal(views[s], plain(table, st, width)),
+                  f"{name}: the library call differs from the plain version")
+        fetch_shapes[name] = {"width": width, "rows_touched": touched,
+                              "used_words_read": used}
+
+    # the CSR fetch: one start per (read, seed), P entries each
+    fetch_case("row128_fetch", P, put(starts_of(n_reads * Q)), False)
+    # the verify window (2*(nw+1) words, a capacity round of the 2B*V
+    # candidates), the DP window and the mate-rescue window (B/2 pairs,
+    # B/2/32 rescue lanes)
+    w_verify = 2 * (nw + 1)
+    w_dp = 2 * (-(-(L_MAX + 2 * HW) // 16) + 1)
+    w_rescue = 2 * (-(-RESCUE_W // 16) + 1)
+    fetch_case("row128_window_fetch", w_verify,
+               put(wstarts_of(n_reads * V // 8, w_verify)), True)
+    fetch_case(f"row128_window_fetch_w{w_dp}", w_dp,
+               put(wstarts_of(n_dp, w_dp)), True)
+    fetch_case(f"row128_window_fetch_w{w_rescue}", w_rescue,
+               put(wstarts_of(max(n_reads // 4 // 32, 1), w_rescue)), True)
+    # the literal rotate on gathered rows, at the DP window's shape: an
+    # add and a wrap per output word; it must move the offsets and the
+    # used words of each row, once in and once out
+    rot_rows = table[: n_dp].repeat(1, 2).contiguous()
+    rot_off = put(rng.integers(0, 128, size=n_dp).astype(np.int32))
+    rot_idx = (rot_off.long()[:, None]
+               + torch.arange(w_dp, device=dev)[None, :]) % rot_rows.shape[1]
+    cases["rotate_narrow"] = (
+        lambda: (lane_rotate.rotate_narrow(rot_rows, rot_off, w_dp),),
+        lambda: (lane_rotate.rotate_narrow_plain(rot_rows, rot_off, w_dp),),
+        (rot_rows, rot_off), n_dp * w_dp * 2,
+        n_dp * 4 + 2 * n_dp * w_dp * 4)
+    library["rotate_narrow"] = lambda: (torch.gather(rot_rows, 1, rot_idx),)
+    check(torch.equal(torch.gather(rot_rows, 1, rot_idx),
+                      lane_rotate.rotate_narrow_plain(rot_rows, rot_off,
+                                                      w_dp)),
+          "rotate_narrow: the library call differs from the plain version")
     # traceback DP, per band cell and read row: E (add+max) and the ee
     # compare 2; the substitution 2; T (max; diag is compared again, so
     # its add stays plain) 1; the running max (add+max) and H (max) 2;
@@ -330,21 +508,26 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
         lambda: tbmod.tb_from_windows(win, tb_reads, ln, hw=HW, sc=sc),
         (win, tb_reads, ln), TB_C * L_MAX * W * 15)
     recs = {}
-    for name, (kern, plain, inputs, ops) in cases.items():
+    for name, (kern, plain, inputs, ops, *moved) in cases.items():
         got, want = kern(), plain()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         err = max_abs_err(got, want)
-        by_bytes = nbytes(inputs + tuple(got)) / HBM_BYTES_PER_S * 1e3
+        nb = moved[0] if moved else nbytes(inputs + tuple(got))
+        by_bytes = nb / HBM_BYTES_PER_S * 1e3
         by_ops = ops / INT32_INSTR_PER_S * 1e3
         rec = {"max_abs_err": err, "ms": time_ms(kern, dev),
                "plain_ms": time_ms(plain, dev),
                "bound_ms": max(by_bytes, by_ops),
                "bound_by": "bytes" if by_bytes > by_ops else "operations",
-               "library_ms": None, "n": int(got[0].shape[0])}
-        if name.startswith("banded_dp"):
+               "library_ms": time_ms(library[name], dev)
+               if name in library else None, "n": int(got[0].shape[0]),
+               **fetch_shapes.get(name, {})}
+        if name.startswith("banded_"):
             s = want[0]
             rec["negative_scores"] = int((s < 0).sum())
+        if name.startswith("banded_semiglobal"):
+            rec["gapped"] = int((want[2] < want[0]).sum())
         if name == "tb_dops":
             rec["walk_ok"] = int(want[2].sum())
             rec["gapped"] = int((want[1] & 0x7F7F7F7F).ne(0).any(0).sum())
@@ -522,16 +705,276 @@ def tb_coverage(results) -> dict:
     return tot
 
 
-def phase_profile(mapper, off_mapper, db, fq: str, batch: int,
-                  work: str) -> None:
-    """Where one batch's time goes: host-clock stage times (each ended
-    by a synchronise) with the traceback on and, in turns within this
-    one run, off (medians of three); then torch.profiler's device time
-    by kernel for start_batch + finish_batch with the traceback on; the
-    full table goes to profile.txt."""
+def plant_pairs(rng, db, n: int):
+    """Planted FR pairs of 150 bp mates from fragments of 200-600 bases:
+    1% SNPs per base, 5% of pairs with a 1-8 bp indel in one mate, 5%
+    with one mate mutated every 15th base (no seed of it survives: only
+    the rescue scan off the other mate places it), 1% junk (both mates
+    random). Which mate is R1 is drawn per pair.
+    Returns (codes1, codes2, truth) with truth = dict(pos1, pos2 int64
+    (-1 junk), strand1, strand2, kind, mutated (1 or 2: the mate))."""
+    from urmap_tpu_torch import alphabet
+
+    g = db.codes
+    lo, hi = int(db.starts[0]), int(db.starts[0] + db.lengths[0])
+    isn = np.concatenate([[0], np.cumsum(g >= 4)])
+    kind = rng.choice(4, size=n, p=[0.89, 0.05, 0.05, 0.01])
+    frag = rng.integers(200, 601, size=n)
+    fs = np.zeros(n, np.int64)
+    todo = np.arange(n)
+    while todo.size:
+        p = rng.integers(lo, hi - 640, size=todo.size)
+        ok = isn[p + 632] - isn[p] == 0
+        fs[todo[ok]] = p[ok]
+        todo = todo[~ok]
+    pos = np.stack([fs, fs + frag - READ_LEN])          # left, right mate
+    mates = [g[pp[:, None] + np.arange(READ_LEN)[None, :]].copy()
+             for pp in pos]
+    which = rng.integers(0, 2, size=n)                  # the altered mate
+    for i in np.nonzero(kind == 1)[0]:
+        m = which[i]
+        o, d = int(rng.integers(8, READ_LEN - 8)), int(rng.integers(1, 9))
+        seg = g[pos[m, i] : pos[m, i] + READ_LEN + d]
+        if rng.random() < 0.5:
+            r = np.concatenate([seg[:o], seg[o + d :]])
+        else:
+            r = np.concatenate([seg[:o], rng.integers(0, 4, d), seg[o:]])
+        mates[m][i] = r[:READ_LEN]
+    junk = kind == 3
+    for m in (0, 1):
+        c = mates[m]
+        snp = (rng.random(c.shape) < 0.01) & ~junk[:, None]
+        c[snp] = (c[snp] + rng.integers(1, 4, int(snp.sum()))) % 4
+        mut = (kind == 2) & (which == m)
+        grid = np.arange(7, READ_LEN, 15)
+        c[np.ix_(mut, grid)] = (c[np.ix_(mut, grid)] + rng.integers(
+            1, 4, (int(mut.sum()), grid.size))) % 4
+        c[junk] = rng.integers(0, 4, (int(junk.sum()), READ_LEN))
+    left, right = mates[0], alphabet.COMP_CODE[mates[1][:, ::-1]]
+    r1_left = rng.integers(0, 2, size=n).astype(bool)
+    c1 = np.where(r1_left[:, None], left, right).astype(np.uint8)
+    c2 = np.where(r1_left[:, None], right, left).astype(np.uint8)
+    truth = {
+        "pos1": np.where(junk, -1, np.where(r1_left, pos[0], pos[1])),
+        "pos2": np.where(junk, -1, np.where(r1_left, pos[1], pos[0])),
+        "strand1": (~r1_left).astype(np.int32),
+        "strand2": r1_left.astype(np.int32),
+        "kind": kind,
+        # the altered mate is left (0) or right (1); as R1/R2:
+        "mutated": np.where((which == 0) == r1_left, 1, 2),
+    }
+    return c1, c2, truth
+
+
+def make_world(rng, work: str, n_reads: int, n_half: int, n_pairs: int,
+               genome_len: int) -> dict:
+    """Genome → FASTA → index; the tables prepared in the layout the
+    index asks for (aligned here) and in the row128 layout; the planted
+    reads and pairs with their FASTQ files."""
+    from urmap_tpu_torch.config import MapConfig
+    from urmap_tpu_torch.io.fasta import SeqDB
+    from urmap_tpu_torch.index import build_index
+    from urmap_tpu_torch.index.store import prepare_tables
+
+    t0 = time.perf_counter()
+    fa = os.path.join(work, "genome.fa")
+    write_fasta(fa, make_genome(rng, genome_len))
+    db = SeqDB.from_fasta(fa)
+    index = build_index(db)
+    p = MapConfig().positions_per_seed
+    prepared = prepare_tables(index, p)
+    check(prepared[1]["layout"] in ("classic", "aligned"),
+          f"layout {prepared[1]['layout']}")
+    t1 = time.perf_counter()
+    os.environ["URMAP_ROW128_BYTES"] = "1"
+    prepared128 = prepare_tables(index, p)
+    del os.environ["URMAP_ROW128_BYTES"]
+    check(prepared128[1]["layout"] == "row128"
+          and prepared128[1]["off_bits"] is not None,
+          f"row128 tables: {prepared128[1]}")
+    t2 = time.perf_counter()
+    codes, truth, strand = plant_reads(rng, db, n_reads)
+    w = {"db": db, "index": index, "prepared": prepared,
+         "prepared128": prepared128, "codes": codes, "truth": truth,
+         "strand": strand, "n_half": n_half}
+    for name, sub in (("reads", codes), ("reads_half", codes[:n_half]),
+                      ("reads_cpu", codes[:N_CPU])):
+        w[name] = os.path.join(work, f"{name}.fq")
+        write_fastq(w[name], sub)
+    c1, c2, w["pair_truth"] = plant_pairs(rng, db, n_pairs)
+    for name, sub in (("r1", c1), ("r2", c2), ("r1_cpu", c1[:N_CPU_PAIRS]),
+                      ("r2_cpu", c2[:N_CPU_PAIRS])):
+        w[name] = os.path.join(work, f"{name}.fq")
+        write_fastq(w[name], sub)
+    w["setup_s"] = {"index_and_tables": t1 - t0, "row128_tables": t2 - t1,
+                    "reads_and_pairs": time.perf_counter() - t2}
+    return w
+
+
+def read_counters() -> dict:
+    from urmap_tpu_torch.kernels import counters
+
+    return {c.name: {"launches": c.launches, "plain_calls": c.plain_calls,
+                     **({"widths": dict(c.widths)} if c.widths else {})}
+            for c in counters()}
+
+
+def reset_counters() -> None:
+    from urmap_tpu_torch.kernels import counters
+
+    for c in counters():
+        c.reset()
+
+
+def check_counters(counts: dict, what: str) -> None:
+    """Every kernel of the mapping path launched, no plain version ran."""
+    from urmap_tpu_torch.kernels import OFF_PATH
+
+    for name, c in counts.items():
+        check(c["launches"] > 0 or name in OFF_PATH,
+              f"{name}: no kernel launch in {what}")
+        check(c["plain_calls"] == 0, f"{name}: plain version ran in {what}")
+
+
+FIELDS = ("mapped", "pos", "strand", "score", "second", "mapq", "gapped",
+          "ungapped", "clipped", "suspect")
+
+
+def differing(a, b, n=None):
+    return [f for f in FIELDS
+            if not np.array_equal(getattr(a, f)[:n], getattr(b, f)[:n])]
+
+
+def tb_differing(a: dict, b: dict) -> list:
+    """Keys of two traceback dicts that differ; of the dops matrix only
+    the live lanes: a fill lane's records come from a window past the
+    table's end, where the layouts' fetches clamp differently, and are
+    never read."""
+    out = []
+    for k in a:
+        x, y = a[k], b[k]
+        if k == "dops":
+            x, y = x[:, a["cols"]], y[:, b["cols"]]
+        if not np.array_equal(x, y):
+            out.append(k)
+    return out
+
+
+def run_single_end(dev, w: dict, mapper, phase: str, fq: str, n: int,
+                   batch: int, smi: str, sam_path: str) -> dict:
+    """One single-end run of the slice through ``mapper`` over the first
+    ``n`` reads, with the slice's checks."""
+    import torch
+
+    db = w["db"]
+    lens = np.full(min(batch, n), READ_LEN, np.int32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mapper.map_codes(w["codes"][: len(lens)], lens)       # warm batch
+    reset_counters()
+    t1 = time.perf_counter()
+    results, sam = map_fastq(mapper, db, fq, batch, sam_path)
+    torch.cuda.synchronize(dev)
+    map_s = time.perf_counter() - t1
+    counts = read_counters()
+    res = concat_results(results)
+    check(len(res.mapped) == n, "result count")
+    cover = tb_coverage(results)
+    truth, strand = w["truth"][:n], w["strand"][:n]
+    planted = truth >= 0
+    correct = res.mapped & (res.pos == truth) & (res.strand == strand)
+    frac = float(correct[planted].mean())
+    junk_unmapped = float((~res.mapped[~planted]).mean())
+    emit({"phase": phase, "device": str(dev), "gpu": smi,
+          "genome_bases": int(db.total_len),
+          "slot_bits": w["index"].config.slot_bits,
+          "layout": "row128" if mapper.row128 else
+          ("aligned" if mapper.csr_aligned else "classic"),
+          "off_bits": mapper.off_bits,
+          "positions": w["index"].num_positions, "reads": n,
+          "batch": batch, "map_s": map_s, "reads_per_s": n / map_s,
+          "correct_frac": frac, "junk_unmapped_frac": junk_unmapped,
+          "mapped_frac": float(res.mapped.mean()),
+          "gapped": int(res.gapped.sum()),
+          "clipped": int(res.clipped.sum()), "batches": len(results),
+          "traceback": cover, "counters": counts,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
+    check_counters(counts, phase)
+    check(counts["tb_dops"]["launches"] == len(results),
+          f"tb_dops launches {counts['tb_dops']['launches']} != batches "
+          f"{len(results)}")
+    check(cover["from_device_frac"] >= 0.9,
+          f"only {cover['from_device_frac']} of the gapped unclipped "
+          "winners decode from device records")
+    check(frac >= 0.99, f"correct fraction {frac} < 0.99")
+    check(junk_unmapped >= 0.99, f"junk unmapped {junk_unmapped} < 0.99")
+    return {"results": results, "sam": sam, "res": res, "counts": counts}
+
+
+def profile_call(fn, table_path: str) -> dict:
+    """torch.profiler over one call of ``fn`` (ended by a synchronise):
+    wall and device-busy ms, the idle share (the profiler's overhead
+    inflates the wall), the top device kernels, the port's own kernels
+    (device ms in all and launches: a launch of a few microseconds is
+    invisible to phase 3's event timing, which then shows the enqueue)
+    and the host ops with the most self time. The full table goes to
+    ``table_path``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    # a trace now and then comes back without one device event (seen
+    # on the second profile of a process): take it again, once
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        ka = prof.key_averages()
+        # device-side events only (kernels, copies): the CPU-side op
+        # rows carry the same device time again
+        on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+        if on_dev:
+            break
+    on_host = [e for e in ka if e.device_type == DeviceType.CPU]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or 0
+
+    def own_name(key: str) -> str:
+        key = key.replace("(anonymous namespace)::", "")
+        return key.removeprefix("void ").split("(")[0][:60]
+
+    busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
+    with open(table_path, "w") as f:
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=60))
+    return {
+        "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms,
+        "device_launches": sum(e.count for e in on_dev),
+        "top_device_ms": [[e.key[:60], dev_us(e) / 1e3, e.count]
+                          for e in sorted(on_dev, key=dev_us,
+                                          reverse=True)[:15]],
+        "port_kernels_device_ms": {
+            own_name(e.key): [dev_us(e) / 1e3, e.count] for e in on_dev
+            if "_kernel" in e.key and "at::" not in e.key},
+        "top_host_self_ms": [[e.key[:40], e.self_cpu_time_total / 1e3,
+                              e.count]
+                             for e in sorted(
+                                 on_host, key=lambda e: e.self_cpu_time_total,
+                                 reverse=True)[:12]]}
+
+
+def phase_profile(mappers: dict, db, fq: str, batch: int,
+                  work: str) -> None:
+    """Where one batch's time goes: host-clock stage times (each ended
+    by a synchronise) for the aligned layout with the traceback on
+    ("on") and off ("off") and for the row128 layout ("row128"), in
+    turns within this one run (medians of three); then torch.profiler's
+    device time by kernel for start_batch + finish_batch on the aligned
+    layout with the traceback on; the full table goes to profile.txt."""
+    import torch
 
     from urmap_tpu_torch.io import sam_native
     from urmap_tpu_torch.io.fastq import FastqReader
@@ -574,166 +1017,313 @@ def phase_profile(mapper, off_mapper, db, fq: str, batch: int,
                                                & res.clipped).sum())}
         return stages
 
-    runs = {"on": [], "off": []}
-    for which in ("on", "off", "off", "on", "on", "off"):
-        runs[which].append(stages_of(mapper if which == "on"
-                                     else off_mapper))
-    stages, stages_off = (
-        {k: (runs[w][0][k] if k == "rows"
-             else statistics.median(r[k] for r in runs[w]))
-         for k in runs[w][0]} for w in ("on", "off"))
+    runs = {k: [] for k in mappers}
+    for which in ("on", "off", "row128", "row128", "off", "on", "on", "off",
+                  "row128"):
+        runs[which].append(stages_of(mappers[which]))
+    med = {w: {k: (runs[w][0][k] if k == "rows"
+                   else statistics.median(r[k] for r in runs[w]))
+               for k in runs[w][0]} for w in runs}
+    mapper = mappers["on"]
     pk = mapper.prepack(b.codes, b.lengths)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        mapper.finish_batch(mapper.start_batch(b.codes, b.lengths,
-                                               prepacked=pk), b.lengths)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ka = prof.key_averages()
-    # device-side events only (kernels, copies): the CPU-side op rows
-    # carry the same device time again
-    on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0) or 0
-
-    busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
-    top = sorted(on_dev, key=dev_us, reverse=True)[:15]
-    with open(os.path.join(work, "profile.txt"), "w") as f:
-        f.write(ka.table(sort_by="self_device_time_total", row_limit=60))
-    emit({"phase": "profile", "reads": len(b), "stages_ms": stages,
-          "stages_tb_off_ms": stages_off, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1 - busy_ms / wall_ms,
-          "top_device_ms": [[e.key[:60], dev_us(e) / 1e3, e.count]
-                            for e in top]})
+    emit({"phase": "profile", "reads": len(b), "stages_ms": med["on"],
+          "stages_tb_off_ms": med["off"], "stages_row128_ms": med["row128"],
+          **profile_call(lambda: mapper.finish_batch(
+              mapper.start_batch(b.codes, b.lengths, prepacked=pk),
+              b.lengths), os.path.join(work, "profile.txt"))})
 
 
-def phase_slice(dev, rng, work: str, n_reads: int, genome_len: int,
-                batch: int, n_cpu: int, smi: str):
-    import torch
-
-    from urmap_tpu_torch.config import MapConfig, ScoreConfig
-    from urmap_tpu_torch.io.fasta import SeqDB
-    from urmap_tpu_torch.index import build_index
-    from urmap_tpu_torch.index.store import prepare_tables
-    from urmap_tpu_torch.kernels import counters
+def phase_cpu(w: dict, mappers: dict, main_sam: bytes, batch: int) -> None:
+    """Phase 5: the first N_CPU reads again, three ways."""
     from urmap_tpu_torch.map import Mapper
 
-    t0 = time.perf_counter()
-    fa = os.path.join(work, "genome.fa")
-    write_fasta(fa, make_genome(rng, genome_len))
-    db = SeqDB.from_fasta(fa)
-    index = build_index(db)
-    mcfg = MapConfig(batch_size=batch)       # the default: traceback on
-    check(mcfg.tb_bits, "the default MapConfig has the traceback on")
-    sc = ScoreConfig()
-    prepared = prepare_tables(index, mcfg.positions_per_seed)
-    layout = prepared[1]["layout"]
-    check(layout in ("classic", "aligned"), f"layout {layout}")
-    codes, truth, strand = plant_reads(rng, db, n_reads)
-    fq = os.path.join(work, "reads.fq")
-    write_fastq(fq, codes)
-    setup_s = time.perf_counter() - t0
-
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    mapper = Mapper(index, mcfg, sc, device=dev, prepared=prepared)
-    check(mapper.tb, "the Mapper runs with the traceback off")
-    lens = np.full(min(batch, n_reads), READ_LEN, np.int32)
-    mapper.map_codes(codes[: len(lens)], lens)            # warm batch
-    for c in counters():
-        c.reset()
-    t1 = time.perf_counter()
-    results, sam = map_fastq(mapper, db, fq, batch,
-                             os.path.join(work, "out.sam"))
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    map_s = time.perf_counter() - t1
-    counts = {c.name: {"launches": c.launches, "plain_calls": c.plain_calls}
-              for c in counters()}
-    res = concat_results(results)
-    check(len(res.mapped) == n_reads, "result count")
-    cover = tb_coverage(results)
-    planted = truth >= 0
-    correct = res.mapped & (res.pos == truth) & (res.strand == strand)
-    frac = float(correct[planted].mean())
-    junk_unmapped = float((~res.mapped[~planted]).mean())
-    rec = {"phase": "slice", "device": str(dev), "gpu": smi,
-           "genome_bases": int(db.total_len), "slot_bits":
-           index.config.slot_bits, "layout": layout,
-           "positions": index.num_positions, "reads": n_reads,
-           "batch": batch, "setup_s": setup_s, "map_s": map_s,
-           "reads_per_s": n_reads / map_s, "correct_frac": frac,
-           "junk_unmapped_frac": junk_unmapped,
-           "mapped_frac": float(res.mapped.mean()),
-           "gapped": int(res.gapped.sum()),
-           "clipped": int(res.clipped.sum()), "batches": len(results),
-           "traceback": cover, "counters": counts}
-    if dev.type == "cuda":
-        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
-    emit(rec)
-    for name, c in counts.items():
-        # B7's bits mode has no caller on the mapping path: phase 3 only
-        check(c["launches"] > 0 or name == "tb_bits" or dev.type != "cuda",
-              f"{name}: no kernel launch in the slice")
-        check(c["plain_calls"] == 0 or dev.type != "cuda",
-              f"{name}: plain version ran in the slice")
-    check(counts["tb_dops"]["launches"] == len(results)
-          or dev.type != "cuda",
-          f"tb_dops launches {counts['tb_dops']['launches']} != batches "
-          f"{len(results)}")
-    check(cover["from_device_frac"] >= 0.9,
-          f"only {cover['from_device_frac']} of the gapped unclipped "
-          "winners decode from device records")
-    check(frac >= 0.99, f"correct fraction {frac} < 0.99")
-    check(junk_unmapped >= 0.99, f"junk unmapped {junk_unmapped} < 0.99")
-    off_mapper = Mapper(index, MapConfig(batch_size=batch, tb_bits=False),
-                        sc, device=dev, prepared=prepared)
-    check(not off_mapper.tb, "tb_bits=False left the traceback on")
-    if dev.type == "cuda":
-        phase_profile(mapper, off_mapper, db, fq, batch, work)
-
-    # ---- phase 5: the first n_cpu reads again, three ways ----
-    fq_cpu = os.path.join(work, "reads_cpu.fq")
-    write_fastq(fq_cpu, codes[:n_cpu])
-    fields = ("mapped", "pos", "strand", "score", "second", "mapq",
-              "gapped", "ungapped", "clipped", "suspect")
-
-    def differing(a, b):
-        return [f for f in fields
-                if not np.array_equal(getattr(a, f), getattr(b, f))]
-
+    db, fq_cpu = w["db"], w["reads_cpu"]
+    mapper, off_mapper = mappers["on"], mappers["off"]
     on_results, on_sam = map_fastq(mapper, db, fq_cpu, batch, None)
     on_res = concat_results(on_results)
-    main_lines = b"\n".join(sam.split(b"\n")[:n_cpu]) + b"\n"
+    main_lines = b"\n".join(main_sam.split(b"\n")[:N_CPU]) + b"\n"
     check(on_sam == main_lines,
           "the first reads map differently alone and in the full run")
     # the card with the traceback off: same result, same SAM bytes
     t2 = time.perf_counter()
     off_results, off_sam = map_fastq(off_mapper, db, fq_cpu, batch, None)
-    del off_mapper
     off_diff = differing(concat_results(off_results), on_res)
-    emit({"phase": "tb_off", "reads": n_cpu, "fields_differing": off_diff,
+    emit({"phase": "tb_off", "reads": N_CPU, "fields_differing": off_diff,
           "sam_identical": off_sam == on_sam,
           "map_s": time.perf_counter() - t2})
     check(not off_diff, f"traceback on and off differ in {off_diff}")
     check(off_sam == on_sam, "traceback on and off: SAM bytes differ")
     # a CPU Mapper (plain versions) with the traceback on
     t3 = time.perf_counter()
-    cpu_mapper = Mapper(index, mcfg, sc, device="cpu", prepared=prepared)
+    cpu_mapper = Mapper(w["index"], mapper.mcfg, mapper.sc, device="cpu",
+                        prepared=w["prepared"])
     cpu_results, cpu_sam = map_fastq(cpu_mapper, db, fq_cpu, batch, None)
     diff = differing(concat_results(cpu_results), on_res)
+    check(len(cpu_results) == len(on_results), "batch counts differ")
     tb_diff = sorted({k for a, b in zip(cpu_results, on_results)
-                      for k in a.tb
-                      if not np.array_equal(a.tb[k], b.tb[k])})
-    emit({"phase": "cpu", "reads": n_cpu, "fields_differing": diff,
+                      for k in tb_differing(a.tb, b.tb)})
+    emit({"phase": "cpu", "reads": N_CPU, "fields_differing": diff,
           "tb_keys_differing": tb_diff, "sam_identical": cpu_sam == on_sam,
           "cpu_map_s": time.perf_counter() - t3})
-    check(len(cpu_results) == len(on_results), "batch counts differ")
     check(not diff, f"card and CPU differ in {diff}")
     check(not tb_diff, f"card and CPU tb records differ in {tb_diff}")
     check(cpu_sam == on_sam, "card and CPU SAM bytes differ")
+
+
+def phase_row128(dev, w: dict, mapper128, aligned: dict, batch: int,
+                 smi: str, work: str) -> dict:
+    """Phase 6: all reads over the row128 tables; equal to the aligned
+    slice on the reads both mapped."""
+    n_half = w["n_half"]
+    check(mapper128.row128 and mapper128.off_bits is not None
+          and mapper128.tables["positions"].dim() == 2
+          and mapper128.tables["ginter"].dim() == 2,
+          "the row128 Mapper does not run the dense-row layout with "
+          "packed offsets")
+    run = run_single_end(dev, w, mapper128, "row128", w["reads"],
+                         len(w["codes"]), batch, smi,
+                         os.path.join(work, "out_row128.sam"))
+    diff = differing(run["res"], aligned["res"], n_half)
+    nb = len(aligned["results"])
+    tb_diff = sorted({k for a, b in zip(run["results"][:nb],
+                                        aligned["results"])
+                      for k in tb_differing(a.tb, b.tb)})
+    head = b"\n".join(run["sam"].split(b"\n")[:n_half]) + b"\n"
+    emit({"phase": "row128_vs_aligned", "reads": n_half,
+          "fields_differing": diff, "tb_keys_differing": tb_diff,
+          "sam_identical": head == aligned["sam"]})
+    check(not diff, f"row128 and aligned differ in {diff}")
+    check(not tb_diff, f"row128 and aligned tb records differ in {tb_diff}")
+    check(head == aligned["sam"], "row128 and aligned: SAM bytes differ")
+    return run
+
+
+def map_pairs_fastq(pm, db, fq1: str, fq2: str):
+    """FastqReader (paired) → PairedMapper → run_stream → cigars_nm_blob
+    per mate → format_paired. Returns (list of PairResult, SAM bytes)."""
+    from urmap_tpu_torch.io.fastq import FastqReader, PrefetchIterator
+    from urmap_tpu_torch.utils.stream import run_stream
+
+    reader = FastqReader(fq1, fq2, batch_size=pm.pair_batch,
+                         max_read_len=pm.mcfg.max_read_len)
+    items = PrefetchIterator(reader, transform=lambda bb: (bb, pm.prepack(
+        bb[0].codes, bb[0].lengths, bb[1].codes, bb[1].lengths)))
+    results, chunks = [], []
+
+    def start(item):
+        (b1, b2), pk = item
+        return pm.start_batch(b1.codes, b1.lengths, b2.codes, b2.lengths,
+                              prepacked=pk)
+
+    def sync(item, handle):
+        b1, b2 = item[0]
+        return pm.finish_batch(handle, b1.lengths, b2.lengths)
+
+    def fmt(item, res):
+        return res, format_pairs(pm, db, *item[0], res)
+
+    def write(out):
+        results.append(out[0])
+        chunks.append(out[1])
+
+    run_stream(items, start, sync, fmt, write, inflight=1, workers=2)
+    return results, b"".join(chunks)
+
+
+def pair_cigars(pm, db, b1, b2, res):
+    from urmap_tpu_torch.map.cigar import cigars_nm_blob
+
+    return [cigars_nm_blob(db.codes, b.codes, m, pm.sc,
+                           raw_lengths=b.seq_len, clip_rows=m.clipped)
+            for b, m in ((b1, res.m1), (b2, res.m2))]
+
+
+def format_pairs(pm, db, b1, b2, res, cig=None) -> bytes:
+    from urmap_tpu_torch.io import sam_native
+
+    (bl1, o1, nm1, sp1), (bl2, o2, nm2, sp2) = cig or pair_cigars(
+        pm, db, b1, b2, res)
+    return sam_native.format_paired(b1, b2, res, (bl1, o1), nm1, sp1,
+                                    (bl2, o2), nm2, sp2, db)
+
+
+def concat_pairs(results):
+    return (concat_results([r.m1 for r in results]),
+            concat_results([r.m2 for r in results]),
+            np.concatenate([r.proper for r in results]))
+
+
+def phase_paired(dev, w: dict, mapper128, smi: str, work: str) -> dict:
+    """Phase 7: the planted pairs through PairedMapper over the row128
+    tables, then the first N_CPU_PAIRS pairs again on a CPU
+    PairedMapper."""
+    import torch
+
+    from urmap_tpu_torch.io.fastq import FastqReader
+    from urmap_tpu_torch.map import Mapper
+    from urmap_tpu_torch.map.pair import PairedMapper
+
+    db, truth = w["db"], w["pair_truth"]
+    n = len(truth["kind"])
+    pm = PairedMapper(mapper128)
+    check(pm.pair_batch == mapper128.mcfg.batch_size // 2 and pm.tb,
+          "PairedMapper: pair batch or traceback switch")
+    b1, b2 = next(iter(FastqReader(w["r1"], w["r2"],
+                                   batch_size=pm.pair_batch)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    pm.map_pair_codes(b1.codes, b1.lengths, b2.codes, b2.lengths)   # warm
+    reset_counters()
+    pm.stats.update(rescue_rounds=0, batches=0)
+    t0 = time.perf_counter()
+    results, sam = map_pairs_fastq(pm, db, w["r1"], w["r2"])
+    torch.cuda.synchronize(dev)
+    map_s = time.perf_counter() - t0
+    counts = read_counters()
+    stats = dict(pm.stats)
+    m1, m2, proper = concat_pairs(results)
+    check(len(proper) == n and sam.count(b"\n") == 2 * n, "pair count")
+    planted = truth["kind"] != 3
+    ok1 = m1.mapped & (m1.pos == truth["pos1"]) \
+        & (m1.strand == truth["strand1"])
+    ok2 = m2.mapped & (m2.pos == truth["pos2"]) \
+        & (m2.strand == truth["strand2"])
+    frac = float(np.concatenate([ok1[planted], ok2[planted]]).mean())
+    proper_frac = float(proper[planted].mean())
+    mut = truth["kind"] == 2
+    rescued = int((np.where(truth["mutated"] == 1, ok1, ok2) & mut).sum())
+    junk_unmapped = float(np.concatenate([~m1.mapped[~planted],
+                                          ~m2.mapped[~planted]]).mean())
+    w_rescue = 2 * (-(-pm.mcfg.rescue_window // 16) + 1)
+    cover = tb_coverage([r.m1 for r in results] + [r.m2 for r in results])
+
+    # one pair batch by stage, host clock, medians of three
+    def stages_of() -> dict:
+        st = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            st[name] = (time.perf_counter() - t) * 1e3
+            return out
+
+        pk = timed("prepack", lambda: pm.prepack(b1.codes, b1.lengths,
+                                                 b2.codes, b2.lengths))
+        h = timed("start_batch", lambda: pm.start_batch(
+            b1.codes, b1.lengths, b2.codes, b2.lengths, prepacked=pk))
+        res = timed("finish_batch",
+                    lambda: pm.finish_batch(h, b1.lengths, b2.lengths))
+        cig = timed("cigars", lambda: pair_cigars(pm, db, b1, b2, res))
+        timed("format_paired", lambda: format_pairs(pm, db, b1, b2, res, cig))
+        return st
+
+    runs = [stages_of() for _ in range(3)]
+    stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    pk = pm.prepack(b1.codes, b1.lengths, b2.codes, b2.lengths)
+    prof = profile_call(lambda: pm.finish_batch(pm.start_batch(
+        b1.codes, b1.lengths, b2.codes, b2.lengths, prepacked=pk),
+        b1.lengths, b2.lengths), os.path.join(work, "profile_paired.txt"))
+    emit({"phase": "paired", "device": str(dev), "gpu": smi,
+          "layout": "row128", "pairs": n, "pair_batch": pm.pair_batch,
+          "map_s": map_s, "pairs_per_s": n / map_s,
+          "correct_mate_frac": frac, "proper_frac": proper_frac,
+          "mutated_mates": int(mut.sum()), "rescued_mates": rescued,
+          "junk_unmapped_frac": junk_unmapped,
+          "batches": stats["batches"],
+          "rescue_rounds_per_batch": stats["rescue_rounds"]
+          / max(stats["batches"], 1),
+          "gapped": int(m1.gapped.sum() + m2.gapped.sum()),
+          "clipped": int(m1.clipped.sum() + m2.clipped.sum()),
+          "traceback": cover, "counters": counts, "stages_ms": stages,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+          "profile": prof})
+    check_counters(counts, "the paired run")
+    check(counts["row128_window_fetch"].get("widths", {}).get(w_rescue, 0)
+          > 0, f"no window fetch of width {w_rescue} (the rescue window)")
+    check(stats["rescue_rounds"] > 0 and rescued > 0,
+          f"no mate rescued ({stats}, {rescued})")
+    check(counts["tb_dops"]["launches"] == stats["batches"] == len(results),
+          f"tb_dops launches {counts['tb_dops']['launches']} != batches "
+          f"{stats['batches']}")
+    check(frac >= 0.99, f"correct mates {frac} < 0.99")
+    check(proper_frac >= 0.95, f"proper pairs {proper_frac} < 0.95")
+    check(cover["from_device_frac"] >= 0.9,
+          f"only {cover['from_device_frac']} of the gapped unclipped mates "
+          "decode from device records")
+
+    # the first pairs again: the card against a CPU PairedMapper
+    t1 = time.perf_counter()
+    on_results, on_sam = map_pairs_fastq(pm, db, w["r1_cpu"], w["r2_cpu"])
+    cpu_pm = PairedMapper(Mapper(w["index"], mapper128.mcfg, mapper128.sc,
+                                 device="cpu", prepared=w["prepared128"]))
+    cpu_results, cpu_sam = map_pairs_fastq(cpu_pm, db, w["r1_cpu"],
+                                           w["r2_cpu"])
+    check(len(cpu_results) == len(on_results), "pair batch counts differ")
+    a1, a2, ap = concat_pairs(on_results)
+    c1, c2, cp = concat_pairs(cpu_results)
+    diff = [f"m1.{f}" for f in differing(a1, c1)] \
+        + [f"m2.{f}" for f in differing(a2, c2)] \
+        + ([] if np.array_equal(ap, cp) else ["proper"])
+    tb_diff = sorted({f"{m}.{k}" for a, b in zip(cpu_results, on_results)
+                      for m in ("m1", "m2")
+                      for k in tb_differing(getattr(a, m).tb,
+                                            getattr(b, m).tb)})
+    emit({"phase": "paired_cpu", "pairs": N_CPU_PAIRS,
+          "fields_differing": diff, "tb_keys_differing": tb_diff,
+          "sam_identical": cpu_sam == on_sam,
+          "seconds": time.perf_counter() - t1})
+    check(not diff, f"paired: card and CPU differ in {diff}")
+    check(not tb_diff, f"paired: card and CPU tb records differ in {tb_diff}")
+    check(cpu_sam == on_sam, "paired: card and CPU SAM bytes differ")
+    return counts
+
+
+def phase_semiglobal(dev, w: dict, run: dict, n: int) -> dict:
+    """Phase 8: kernel B1' on the row128 slice's first ``n`` winners.
+    Each is re-aligned over the byte genome with its POS as the
+    candidate: the kernel's four outputs must equal the plain version's
+    on the card. The band is re-centred on POS, so a few scores may
+    differ from the slice's: the share that agrees is printed."""
+    import torch
+
+    from urmap_tpu_torch.config import ScoreConfig
+    from urmap_tpu_torch.map import dp as dpmod
+    from urmap_tpu_torch.map.pipeline import revcomp_strand_codes
+
+    res = run["res"]
+    rows = np.nonzero(res.mapped)[0][:n]
+    sub = dataclasses.replace(
+        res, **{f: getattr(res, f)[rows] for f in FIELDS + ("lengths",)})
+    codes = np.full((len(rows), L_MAX), 5, np.uint8)
+    codes[:, :READ_LEN] = w["codes"][rows]
+    codes = revcomp_strand_codes(codes, sub)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    genome = put(w["db"].codes)
+    args = (genome, put(sub.pos.astype(np.int32)), put(codes),
+            put(sub.lengths.astype(np.int32)))
+    sc = ScoreConfig()
+    reset_counters()
+    got = dpmod.banded_dispatch(*args, hw=HW, sc=sc)
+    torch.cuda.synchronize(dev)
+    counts = read_counters()
+    want = dpmod.banded_semiglobal(*args, hw=HW, sc=sc)
+    err = max_abs_err(got, want)
+    unclipped = ~sub.clipped
+    same = (got[0].cpu().numpy() == sub.score)[unclipped]
+    emit({"phase": "semiglobal", "winners": len(rows), "max_abs_err": err,
+          "launches": counts["banded_semiglobal"]["launches"],
+          "unclipped": int(unclipped.sum()),
+          "score_equals_slice_frac": float(same.mean()),
+          "d0_zero_frac": float((got[1] == 0).float().mean())})
+    check(err == 0, f"banded_semiglobal differs from plain on the winners "
+          f"(max abs err {err})")
+    check(counts["banded_semiglobal"]["launches"] == 1
+          and counts["banded_semiglobal"]["plain_calls"] == 0,
+          f"banded_semiglobal on the winners: {counts['banded_semiglobal']}")
     return counts
 
 
@@ -741,6 +1331,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reads", type=int, default=131_072)
+    ap.add_argument("--pairs", type=int, default=65_536)
     args = ap.parse_args(argv)
 
     import torch
@@ -750,8 +1341,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from urmap_tpu_torch import require_device
+    from urmap_tpu_torch.config import MapConfig, ScoreConfig
     from urmap_tpu_torch.io import native
     from urmap_tpu_torch.kernels import _build
+    from urmap_tpu_torch.map import Mapper
 
     # the host times below must be the C++ codecs', not the numpy twins'
     check(native.lib() is not None,
@@ -775,39 +1368,100 @@ def main(argv=None) -> int:
     recs = phase_kernels(dev, rng, 2 * B, 2 * (B // 8) * V,
                          2 * (B // 32) * V)
     emit({"phase": "kernels", "gpu": smi, **recs})
-    from urmap_tpu_torch.kernels import tb_dp
-
-    bits_launches = tb_dp.bits_counter.launches
+    phase3 = read_counters()
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    counts = phase_slice(dev, rng, work, args.reads, CHR21_LEN, B, 4096,
-                         smi)
+    n_half = min(args.reads, max(args.reads // 2, N_CPU))
+    w = make_world(rng, work, args.reads, n_half, args.pairs, CHR21_LEN)
+    emit({"phase": "setup", "seconds": w["setup_s"],
+          "layouts": [w["prepared"][1]["layout"],
+                      w["prepared128"][1]["layout"]],
+          "off_bits": w["prepared128"][1]["off_bits"]})
+    mcfg = MapConfig(batch_size=B)           # the default: traceback on
+    check(mcfg.tb_bits, "the default MapConfig has the traceback on")
+    sc = ScoreConfig()
+    mappers = {
+        "on": Mapper(w["index"], mcfg, sc, device=dev,
+                     prepared=w["prepared"]),
+        "off": Mapper(w["index"], MapConfig(batch_size=B, tb_bits=False), sc,
+                      device=dev, prepared=w["prepared"]),
+        "row128": Mapper(w["index"], mcfg, sc, device=dev,
+                         prepared=w["prepared128"]),
+    }
+    check(mappers["on"].tb and mappers["row128"].tb
+          and not mappers["off"].tb, "the traceback switch of the Mappers")
+    aligned = run_single_end(dev, w, mappers["on"], "slice", w["reads_half"],
+                             n_half, B, smi, os.path.join(work, "out.sam"))
+    phase_profile(mappers, w["db"], w["reads"], B, work)
+    phase_cpu(w, mappers, aligned["sam"], B)
+    r128 = phase_row128(dev, w, mappers["row128"], aligned, B, smi, work)
+    pe_counts = phase_paired(dev, w, mappers["row128"], smi, work)
+    sg_counts = phase_semiglobal(dev, w, r128, N_CPU)
 
-    sources = {"seed_slots": ("seed_slots.cu", "seed_slots.py:192"),
-               "vote": ("vote.cu", "vote.py:123"),
-               "banded_dp": ("banded_dp.cu", "banded_dp.py:172"),
-               "banded_dp_clip": ("banded_dp.cu", "banded_dp.py:172"),
-               "tb_dops": ("tb_dp.cu", "tb_dp.py:548"),
-               "tb_bits": ("tb_dp.cu", "tb_dp.py:227")}
-    # launches: the count over the slice's run (phase 4), counters set
-    # to 0 just before it. tb_bits is a mode of the tb_dops kernel with
-    # no caller on the mapping path: 0 there; phase 3 launched it
+    src = "urmap_tpu_torch/csrc/"
+    tpu = "urmap_tpu/kernels/"
+    w_dp = 2 * (-(-(L_MAX + 2 * HW) // 16) + 1)
+    w_rescue = 2 * (-(-RESCUE_W // 16) + 1)
+    # name → (source, TPU kernel)
+    sources = {
+        "seed_slots": ("seed_slots.cu", "seed_slots.py:192"),
+        "row128_fetch": ("lane_rotate.cu", "lane_rotate.py:120"),
+        "vote": ("vote.cu", "vote.py:123"),
+        "row128_window_fetch": ("lane_rotate.cu", "lane_rotate.py:120"),
+        f"row128_window_fetch_w{w_dp}": ("lane_rotate.cu",
+                                         "lane_rotate.py:120"),
+        f"row128_window_fetch_w{w_rescue}": ("lane_rotate.cu",
+                                             "lane_rotate.py:120"),
+        "banded_dp": ("banded_dp.cu", "banded_dp.py:172"),
+        "banded_dp_clip": ("banded_dp.cu", "banded_dp.py:172"),
+        "tb_dops": ("tb_dp.cu", "tb_dp.py:548"),
+        "banded_semiglobal": ("banded_dp.cu", "banded_dp.py:199"),
+        "banded_semiglobal_clip": ("banded_dp.cu", "banded_dp.py:199"),
+        "rotate_narrow": ("lane_rotate.cu", "lane_rotate.py:120"),
+        "tb_bits": ("tb_dp.cu", "tb_dp.py:227"),
+    }
+
+    window_widths = {"row128_window_fetch": 2 * (-(-L_MAX // 16) + 1),
+                     f"row128_window_fetch_w{w_dp}": w_dp,
+                     f"row128_window_fetch_w{w_rescue}": w_rescue}
+
+    def launches_in(counts: dict, name: str) -> int:
+        """Launches of a kernels-line entry in one path's counters; the
+        window fetch is one counter split by width."""
+        if name in window_widths:
+            return counts["row128_window_fetch"].get("widths", {}).get(
+                window_widths[name], 0)
+        return counts[name]["launches"]
+
+    # launches: the counts over the three paths (aligned slice, row128
+    # slice, paired run), each read just after its run with the counters
+    # set to 0 just before it, summed; by path under launches_by_path.
+    # banded_semiglobal's path is phase 8 (the winners re-aligned over
+    # the byte genome). The clip mode of B1', the literal rotate and
+    # tb_bits have no caller on any path: 0; phase 3 launched them
     # phase3_launches times (one compared, eight timed).
-    kernels = [
-        {"name": name, "route": "cuda",
-         "source": f"urmap_tpu_torch/csrc/{src}",
-         "replaces": f"urmap_tpu/kernels/{tpu}",
-         "launches": counts[name]["launches"],
-         **{k: recs[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by",
-                                       "library_ms")}}
-        for name, (src, tpu) in sources.items()]
-    kernels[-1]["phase3_launches"] = bits_launches
+    paths = {"slice": aligned["counts"], "row128": r128["counts"],
+             "paired": pe_counts, "semiglobal": sg_counts}
+    kernels = []
+    for name, (cu, py) in sources.items():
+        by_path = {p: launches_in(c, name) for p, c in paths.items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + cu,
+            "replaces": tpu + py, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "phase3_launches": launches_in(phase3, name),
+            **{k: recs[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}})
+    on_path = [k for k in kernels if k["name"] not in
+               ("banded_semiglobal_clip", "rotate_narrow", "tb_bits")]
+    check(all(k["launches"] > 0 for k in on_path),
+          f"a kernel of the paths was never launched: {kernels}")
     emit({"kernels": kernels,
-          "note": "tb_bits has no caller on the mapping path: its "
-                  "launches there are 0, phase 3 held it against its "
-                  "plain version"})
+          "note": "banded_semiglobal_clip, rotate_narrow and tb_bits have "
+                  "no caller on a path: their launches there are 0, phase "
+                  "3 held each against its plain version"})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -143,6 +143,15 @@ def test_mapper_refuses_what_is_not_ported(corpus, monkeypatch):
             TMapper(idx, mcfg, device="cpu")
     # the default configuration (device traceback on) is ported
     assert TMapper(idx, MapConfig(batch_size=128), device="cpu").tb
+    # the tiered gather is not: the aligned table carries a tier, which
+    # URMAP_TIER_GATHER=1 puts into effect
+    monkeypatch.setenv("URMAP_TIER_GATHER", "1")
+    prepared = jprepare(jbuild(db, None, backend="host"), 16)
+    prepared[1]["gather_tier"] = 4
+    with pytest.raises(NotImplementedError, match="A.3"):
+        TMapper(idx, MCFG, device="cpu", prepared=prepared)
+    monkeypatch.delenv("URMAP_TIER_GATHER")
+    # the row128 layout is ported: the Mapper takes it
     monkeypatch.setenv("URMAP_ROW128_BYTES", "1")
-    with pytest.raises(NotImplementedError, match="B5"):
-        TMapper(idx, MCFG, device="cpu")
+    m128 = TMapper(idx, MCFG, device="cpu")
+    assert m128.row128 and m128.off_bits is not None

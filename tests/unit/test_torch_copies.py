@@ -66,6 +66,10 @@ FUNCTION_COPIES = [
     ("map.cigar", "strand_codes_subset"), ("map.pipeline", "tb_cols"),
     ("map.pipeline", "merge_tb_batches"), ("map.pipeline", "unpack_tb"),
     ("map.pipeline", "_unsat16"), ("hashing", "words_to_slots_np"),
+    ("map.cigar", "traceback"), ("map.cigar", "cigars_nm_fast"),
+    ("map.cigar", "add_truncation_clips"), ("map.cigar", "cigars_for_result"),
+    ("map.pair", "PairResult"), ("map.pair", "_ref_spans"),
+    ("index.store", "ginter_rows"),
 ]
 
 

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.utils import make_seqdb, plant_read
+from tests.utils import make_seqdb, plant_pair, plant_read
 from urmap_tpu_torch.config import MapConfig, ScoreConfig
 from urmap_tpu_torch.index import build_index
 from urmap_tpu_torch.kernels import counters
@@ -31,7 +31,10 @@ def test_kernels_match_plain_versions(cuda_device):
     recs = chip_smoke.phase_kernels(cuda_device, np.random.default_rng(1),
                                     4096, 1024, 512)
     assert all(r["max_abs_err"] == 0 for r in recs.values()), recs
-    assert {"tb_dops", "tb_bits"} <= set(recs)
+    assert {"tb_dops", "tb_bits", "row128_fetch", "row128_window_fetch",
+            "row128_window_fetch_w26", "row128_window_fetch_w152",
+            "rotate_narrow", "banded_semiglobal",
+            "banded_semiglobal_clip"} <= set(recs)
 
 
 def _tb_inputs(seed, n, L, hw, dev):
@@ -119,4 +122,198 @@ def test_cuda_mapper_matches_cpu_mapper(cuda_device, max_read_len, tb_bits):
     if tb_bits:
         assert got.tb["rows"].size > 0
         for k in got.tb:
-            np.testing.assert_array_equal(got.tb[k], want.tb[k], err_msg=k)
+            a, b = got.tb[k], want.tb[k]
+            if k == "dops":
+                # live lanes: a fill lane's window lies past the table's
+                # end, where the card's fetch (kernel B5) and the CPU's
+                # narrow-row gather clamp differently; never read
+                a, b = a[:, got.tb["cols"]], b[:, want.tb["cols"]]
+            np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def _table(seed, rows, dev):
+    rng = np.random.default_rng(seed)
+    t = rng.integers(-(1 << 31), 1 << 31, (rows, 128)).astype(np.int32)
+    return rng, torch.from_numpy(t).to(dev)
+
+
+@pytest.mark.parametrize("width", [16, 22, 26, 152])
+@pytest.mark.parametrize("window", [False, True])
+def test_row128_fetch_kernel_matches_plain(cuda_device, width, window):
+    """B5's two fetch entries at the paths' widths: W = 128 (width 16),
+    256 (22, 26), 384 (152), with starts at both ends of the table, past
+    it and negative."""
+    from urmap_tpu_torch import genome_pack as gpk
+    from urmap_tpu_torch.kernels import lane_rotate
+    from urmap_tpu_torch.map import seed
+
+    rows = 4096
+    rng, table = _table(5, rows, cuda_device)
+    M = rows * 128
+    st = rng.integers(0, M, 50_000)
+    st[:10] = [0, 127, 128, M - width, M - width + 1, M - 1, M, M + 4000,
+               -1, -(1 << 33)]
+    if not window:
+        st = np.abs(st)                 # CSR offsets are unsigned
+    st = torch.from_numpy(st).to(cuda_device)
+    cnt = lane_rotate.window_counter if window else lane_rotate.fetch_counter
+    kern = lane_rotate.row128_window_fetch if window \
+        else lane_rotate.row128_fetch
+    plain = gpk.row128_window_fetch if window else seed._row128_fetch
+    cnt.reset()
+    got = kern(table, st, width)
+    torch.cuda.synchronize()
+    assert cnt.launches == 1 and cnt.plain_calls == 0
+    assert cnt.widths == ({width: 1} if window else {})
+    want = plain(table, st, width)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    with pytest.raises(ValueError, match="starts"):
+        kern(table, st.to(torch.int32), width)
+    with pytest.raises(ValueError, match="table"):
+        kern(table.view(-1, 64), st, width)
+
+
+@pytest.mark.parametrize("words", [128 * 40 + 48, 128 * 40, 16 * 11, 200])
+@pytest.mark.parametrize("window", [False, True])
+def test_fetch_kernel_takes_a_table_of_any_length(cuda_device, words, window):
+    """A 1-D table whose length is no multiple of 128 words (the aligned
+    layout's positions at rows of 16, the classic layout's positions and
+    genome of a small index) is read by kernel B5 all the same, equal to
+    the plain version on every lane."""
+    from urmap_tpu_torch import genome_pack as gpk
+    from urmap_tpu_torch.kernels import lane_rotate
+    from urmap_tpu_torch.map import seed
+
+    rng = np.random.default_rng(9)
+    table = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, words).astype(np.int32)) \
+        .to(cuda_device)
+    width, rw = 16, 16
+    st = rng.integers(0, words, 5000)
+    st[:8] = [0, 15, 16, words - width, words - 1, words, words + 77,
+              words - rw]
+    if window:
+        st[8:10] = [-1, -(1 << 33)]
+    st = torch.from_numpy(st).to(cuda_device)
+    cnt = lane_rotate.window_counter if window else lane_rotate.fetch_counter
+    cnt.reset()
+    if window:
+        got = gpk.gather_window(table, st, width)
+        want = gpk.row128_window_fetch(table, st, width)
+    else:
+        got = lane_rotate.row128_fetch(table, st, width, row_words=rw)
+        want = seed._aligned_rows_fetch(table, st, width, rw)
+    torch.cuda.synchronize()
+    assert cnt.launches == 1 and cnt.plain_calls == 0
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if window:                      # inside the table: the words themselves
+        inside = (st >= 0) & (st <= words - width)
+        assert torch.equal(got[inside],
+                           table.unfold(0, width, 1)[st[inside]])
+
+
+@pytest.mark.parametrize("W,width", [(128, 16), (256, 26), (384, 152)])
+def test_rotate_narrow_kernel_matches_plain(cuda_device, W, width):
+    from urmap_tpu_torch.kernels import lane_rotate
+
+    rng, table = _table(6, 3000, cuda_device)
+    rows = table.repeat(1, W // 128).contiguous()
+    off = torch.from_numpy(rng.integers(0, 128, 3000).astype(np.int32)) \
+        .to(cuda_device)
+    lane_rotate.rotate_counter.reset()
+    got = lane_rotate.rotate_narrow(rows, off, width)
+    torch.cuda.synchronize()
+    assert lane_rotate.rotate_counter.launches == 1
+    assert torch.equal(got, lane_rotate.rotate_narrow_plain(rows, off, width))
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("hw,L", [(16, 160), (8, 100), (32, 96)])
+def test_banded_semiglobal_kernel_matches_plain(cuda_device, clip, hw, L):
+    """B1' at the path's shape and at the other compiled half-widths,
+    candidates off both ends of the genome."""
+    from urmap_tpu_torch.kernels import banded_dp
+    from urmap_tpu_torch.map import dp
+
+    rng = np.random.default_rng(7)
+    G, n = 50_000, 2000
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    genome[rng.random(G) < 0.01] = 4
+    cand = rng.integers(0, G - L, n).astype(np.int32)
+    cand[:8] = [0, 2, -7, -hw - 30, G - L, G - 9, G + 50, G - L + hw]
+    lens = rng.integers(L - 12, L + 1, n).astype(np.int32)
+    # outside [0, L]: above L no last row is reached, below 0 counts as 0
+    lens[8:14] = [0, 1, L, L + 1, L + 5, -3]
+    reads = np.full((n, L), 5, np.uint8)
+    for i in range(n):
+        s = int(np.clip(cand[i] + rng.integers(-hw + 1, hw), 0, G - L - 8))
+        r = genome[s : s + L + 8].copy()
+        if i % 4 == 1:
+            r = np.delete(r, slice(40, 40 + int(rng.integers(1, 6))))
+        if i % 4 == 2:
+            r = np.insert(r, 50, rng.integers(0, 4, int(rng.integers(1, 6))))
+        if i % 4 == 3:
+            r[L - 30 :] = rng.integers(0, 4, len(r) - L + 30)
+        reads[i] = np.where(r[:L] == 4, 5, r[:L])
+    reads[np.arange(L)[None, :] >= lens[:, None]] = 5
+    args = tuple(torch.from_numpy(a).to(cuda_device)
+                 for a in (genome, cand, reads, lens))
+    sc = ScoreConfig()
+    co = sc.clip_open if clip else None
+    cnt = banded_dp.semiglobal_clip_counter if clip \
+        else banded_dp.semiglobal_counter
+    cnt.reset()
+    got = dp.banded_dispatch(*args, hw=hw, sc=sc, clip_open=co)
+    torch.cuda.synchronize()
+    assert cnt.launches == 1 and cnt.plain_calls == 0
+    want = dp.banded_semiglobal(*args, hw=hw, sc=sc, clip_open=co)
+    for name, g, w in zip(("score", "d0", "ungapped", "span"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    with pytest.raises(ValueError, match="no kernel for hw=12"):
+        dp.banded_dispatch(*args, hw=12, sc=sc, clip_open=co)
+
+
+@pytest.mark.parametrize("row128", [False, True])
+def test_cuda_paired_mapper_matches_cpu(cuda_device, monkeypatch, row128):
+    from urmap_tpu_torch.map.pair import PairedMapper
+
+    if row128:
+        monkeypatch.setenv("URMAP_ROW128_BYTES", "1")
+    rng = np.random.default_rng(8)
+    db = make_seqdb(rng, [300_000])
+    pairs = [plant_pair(rng, db, length=150,
+                        frag=int(rng.integers(250, 600)),
+                        n_snps=int(rng.integers(0, 3)),
+                        snp_every=(15 if i % 4 == 0 else None))
+             for i in range(300)]
+    c1 = np.stack([p[0].codes for p in pairs])
+    c2 = np.stack([p[1].codes for p in pairs])
+    ln = np.full(len(pairs), 150, np.int32)
+    idx = build_index(db)
+    mcfg = MapConfig(batch_size=256)
+    for c in counters():
+        c.reset()
+    pm = PairedMapper(Mapper(idx, mcfg, device=cuda_device))
+    assert pm.mapper.row128 == row128
+    got = pm.map_pair_codes(c1, ln, c2, ln)
+    by_name = {c.name: c for c in counters()}
+    assert all(by_name[k].launches > 0 and by_name[k].plain_calls == 0
+               for k in ("seed_slots", "vote", "banded_dp", "row128_fetch",
+                         "row128_window_fetch", "tb_dops"))
+    assert by_name["row128_window_fetch"].widths.get(152, 0) > 0
+    assert pm.stats["rescue_rounds"] > 0
+    want = PairedMapper(Mapper(idx, mcfg, device="cpu")) \
+        .map_pair_codes(c1, ln, c2, ln)
+    np.testing.assert_array_equal(got.proper, want.proper)
+    assert got.proper.mean() > 0.9
+    for m in ("m1", "m2"):
+        a, b = getattr(got, m), getattr(want, m)
+        for f in ("mapped", "pos", "strand", "score", "second", "mapq",
+                  "gapped", "ungapped", "clipped", "suspect"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                          err_msg=f"{m}.{f}")
+        for k in a.tb:
+            x, y = a.tb[k], b.tb[k]
+            if k == "dops":      # live lanes: fill lanes are never read
+                x, y = x[:, a.tb["cols"]], y[:, b.tb["cols"]]
+            np.testing.assert_array_equal(x, y, err_msg=f"{m}.tb.{k}")

@@ -140,6 +140,18 @@ def test_window_gathers_and_mismatch_counts(rng, ginter, L):
 
 
 def test_row128_window_fetch_waits_for_lane_rotate():
-    with pytest.raises(NotImplementedError, match="B5"):
-        tgpk.row128_window_fetch(torch.zeros((4, 128), dtype=torch.int32),
-                                 torch.zeros(2, dtype=torch.int32), 16)
+    """The lane-rotate port is in: the fetch no longer raises. A 2-D
+    table goes through the kernel's wrapper, which on a CPU tensor runs
+    the plain version; the start is clipped into the table."""
+    from urmap_tpu_torch.kernels import lane_rotate
+
+    table = torch.arange(4 * 128, dtype=torch.int32).reshape(4, 128)
+    starts = torch.tensor([0, 120, 500, 9999, -3], dtype=torch.int32)
+    want = torch.tensor([0, 120, 496, 496, 0])[:, None] + torch.arange(16)
+    got = tgpk.row128_window_fetch(table, starts, 16)
+    assert got.dtype == torch.int32 and torch.equal(got.long(), want)
+    lane_rotate.window_counter.reset()
+    via = tgpk.gather_window(table, starts, 16)
+    assert torch.equal(via, got)
+    assert (lane_rotate.window_counter.plain_calls,
+            lane_rotate.window_counter.launches) == (1, 0)

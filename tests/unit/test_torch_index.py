@@ -108,5 +108,20 @@ def test_tables_from_numpy(db, monkeypatch):
     monkeypatch.setenv("URMAP_ROW128_BYTES", "1")
     ht128, meta128 = jstore.prepare_tables(jbuild(db, cfg, backend="host"),
                                            16)
-    with pytest.raises(NotImplementedError, match="B5"):
-        tstore.tables_from_numpy(ht128, meta128, dev)
+    # the row128 layout comes up as dense [R, 128] tables with the
+    # packed offsets in place of the plain ones
+    assert not tables["row128"] and tables["off_bits"] is None
+    t128 = tstore.tables_from_numpy(ht128, meta128, dev)
+    assert t128["row128"] and t128["off_bits"] == tuple(meta128["off_bits"])
+    assert t128["positions"].shape == (ht128["positions"].shape[0] // 128,
+                                       128)
+    assert t128["ginter"].dim() == 2 and t128["ginter"].shape[1] == 128
+    np.testing.assert_array_equal(
+        t128["offsets"].numpy().view(np.uint32), ht128["opacked"])
+    np.testing.assert_array_equal(
+        t128["obase"].numpy().view(np.uint32), ht128["obase"])
+    monkeypatch.setenv("URMAP_NO_PACKED_OFFSETS", "1")
+    plain = tstore.tables_from_numpy(ht128, meta128, dev)
+    assert plain["off_bits"] is None and "obase" not in plain
+    np.testing.assert_array_equal(
+        plain["offsets"].numpy().view(np.uint32), ht128["offsets"])

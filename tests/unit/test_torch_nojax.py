@@ -4,7 +4,7 @@ A subprocess makes ``import jax`` fail, imports every module of the
 port and nothing else of this repository, and maps 64 planted reads
 (half of them with an indel, so the device-traceback records are
 replayed) on the CPU through the single-end SAM path with the default
-MapConfig. Afterwards no module named ``urmap_tpu`` or ``urmap_tpu.*``
+MapConfig, then a pair batch over a row128 table. Afterwards no module named ``urmap_tpu`` or ``urmap_tpu.*``
 and no ``jax*`` may be loaded. The machine with the card has no JAX.
 """
 
@@ -61,6 +61,19 @@ blob, off, nm, _ = cigars_nm_blob(db.codes, batch.codes, res, mapper.sc)
 sam = sam_native.format_single_end(batch, res, (blob, off), nm, db)
 assert sam.count(b"\n") == 64 and sam.count(b"3D") == 16
 assert sam_native.available()
+# a pair batch over a row128 table: FR pairs 300 bases apart
+os.environ["URMAP_ROW128_BYTES"] = "1"
+from urmap_tpu_torch.map.pair import PairedMapper
+m128 = Mapper(mapper.index, MapConfig(batch_size=64), device="cpu")
+assert m128.row128 and m128.off_bits is not None
+p1 = pos[:32]
+c1 = db.codes[p1[:, None] + np.arange(150)[None, :]]
+c2 = alphabet.COMP_CODE[db.codes[p1[:, None] + 150 + np.arange(150)[None, :]]
+                        [:, ::-1]]
+ln = np.full(32, 150, np.int32)
+pres = PairedMapper(m128).map_pair_codes(c1, ln, c2, ln)
+assert pres.proper.all() and (pres.m1.pos == p1).all()
+assert (pres.m2.pos == p1 + 150).all() and (pres.m2.strand == 1).all()
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("jax", "jaxlib", "urmap_tpu")
     or m.startswith(("jax.", "jaxlib.", "urmap_tpu."))))

@@ -10,8 +10,10 @@ counting is XOR + popcount:
 
 Host half (numpy, JAX-free copies of the reference's functions) builds
 the planes; device half (torch, int32 words per ``_bits``) gathers
-windows and unpacks them. Guard words at both ends read as all-N, so a
-window that runs off the genome reads as mismatches.
+windows and unpacks them, from the 1-D table or from its dense
+[R, 128] view (the row128 layout, kernel B5). Guard words at both ends
+read as all-N, so a window that runs off the genome reads as
+mismatches.
 """
 
 from __future__ import annotations
@@ -281,26 +283,49 @@ def row_gather_window(table: torch.Tensor, starts: torch.Tensor, width: int,
     return table[r * row_words + t % row_words]
 
 
-def row128_window_fetch(table2d, starts, width: int):
-    """Window fetch from the dense [R, 128] row128 layout. Ported with
-    the lane-rotate kernel (B5); no layout that reaches this exists in
-    the port yet."""
-    raise NotImplementedError(
-        "row128 layout: needs the lane-rotate port (ROADMAP.md B5)")
+def row128_window_fetch(table: torch.Tensor, starts: torch.Tensor,
+                        width: int) -> torch.Tensor:
+    """Window fetch from a table of M words, the dense [R, 128] view of
+    the row128 layout or a 1-D table: table.flat[s : s + width] per row,
+    with s = starts clipped to [0, M - width]. The plain version of
+    kernel B5's window entry (kernels/lane_rotate.py).
+
+    The reference gathers ceil(width/128) + 1 rows from s // 128 on,
+    each row index clipped to R - 1, and funnels by s % 128; a clipped
+    start never reads past the table, so that row clip changes no lane
+    and this is equal on every lane."""
+    s = starts.to(torch.int64).clamp(0, table.numel() - width)
+    t = s[:, None] + torch.arange(width, dtype=torch.int64,
+                                  device=table.device)[None, :]
+    return table.reshape(-1)[t]
+
+
+def gather_window(table: torch.Tensor, starts: torch.Tensor, width: int, *,
+                  row_words: int = GATHER_ROW_WORDS) -> torch.Tensor:
+    """table[starts[i] : starts[i]+width] per row, by the fetch the
+    table's shape and device call for: every table on a CUDA device, of
+    any length, and a [R, 128] table (row128 layout) anywhere go through
+    kernel B5's window entry; a 1-D table on the CPU takes the
+    narrow-row gather. The fetches agree wherever the window lies inside
+    the table; they clamp a start past its end differently (callers keep
+    used windows inside the guard words)."""
+    from urmap_tpu_torch.kernels import lane_rotate
+
+    if table.is_cuda or table.dim() == 2:
+        return lane_rotate.row128_window_fetch(table, starts.to(torch.int64),
+                                               width)
+    return row_gather_window(table, starts, width, row_words=row_words)
 
 
 def _gather_aligned(ginter: torch.Tensor, starts: torch.Tensor,
                     n_words: int, base_off: int):
-    """ONE row gather from the interleaved table, funnel-aligned:
+    """ONE window fetch from the interleaved table, funnel-aligned:
     (code words, N words) int32[N, n_words] for windows beginning at
     base ``starts[i]``."""
-    if ginter.dim() == 2:
-        return row128_window_fetch(ginter, starts, 2 * (n_words + 1))
     s = starts.to(torch.int64)
     w0 = torch.div(s, BASES_PER_WORD, rounding_mode="floor") + base_off
     r = (s - (w0 - base_off) * BASES_PER_WORD).to(torch.int32)   # 0..15
-    both = row_gather_window(ginter, 2 * w0, 2 * (n_words + 1),
-                             row_words=GATHER_ROW_WORDS)
+    both = gather_window(ginter, 2 * w0, 2 * (n_words + 1))
     both = both.reshape(both.shape[0], n_words + 1, 2)
     sh = (2 * r)[:, None].expand(-1, n_words)
 

@@ -489,7 +489,7 @@ def load_prepared(index: UfiIndex, p: int) -> tuple[dict, dict] | None:
     """The prepared tables matching this index and gather width, or
     None (missing or stale). Arrays are memory-mapped. A row128 cache
     written before the packed offsets existed is returned without them
-    (the port does not run the row128 layout yet)."""
+    (the Mapper then gathers from the plain offsets table)."""
     if index.path is None:
         return None
     d = _prepared_dir(index.path, p)
@@ -528,34 +528,75 @@ def load_prepared(index: UfiIndex, p: int) -> tuple[dict, dict] | None:
     return ht, meta
 
 
-def tables_to_device(ht: dict, device: torch.device) -> dict:
-    """Classic or aligned host tables → device tables. uint32 arrays
-    travel as int32 bit patterns (``_bits``); gathered CSR offsets are
-    widened back to uint32 values in int64 (seed.gather_candidates)."""
+# urmap_tpu/index/store.py:ginter_rows
+def ginter_rows(ginter) -> np.ndarray:
+    """Interleaved genome planes → dense [R, 128] rows for the row128
+    layout (genome_pack.row128_window_fetch). Pads stale caches whose
+    length predates the %128 pack_genome guarantee with all-N guard
+    pairs (code 0, nplane 0x5555_5555)."""
+    g = np.asarray(ginter)
+    rem = int((-g.shape[0]) % 128)
+    if rem:
+        pad = np.empty(rem, np.uint32)
+        pad[0::2] = 0
+        pad[1::2] = 0x5555_5555
+        g = np.concatenate([g, pad])
+    return g.reshape(-1, 128)
+
+
+def tables_to_device(ht: dict, device: torch.device, *,
+                     use_packed_offsets: bool = False) -> dict:
+    """Host tables → device tables. uint32 arrays travel as int32 bit
+    patterns (``_bits``); gathered CSR offsets are widened back to
+    uint32 values in int64 (seed.gather_candidates).
+
+    row128 layout: positions and the interleaved genome go up shaped
+    [R, 128], the view kernel B5 (kernels/lane_rotate.py) fetches from.
+    ``use_packed_offsets``: ht["opacked"] rides as ``offsets`` with
+    ht["obase"] beside it (pack_offsets_row128: half the offsets' bytes);
+    the caller then threads the matching meta["off_bits"]."""
+    def put(a):
+        return torch.from_numpy(as_i32(np.asarray(a))).to(device)
+
+    pos, gin = ht["positions"], ht["ginter"]
     if ht.get("layout") == "row128":
-        raise NotImplementedError(
-            "row128 layout: the port runs classic and aligned tables "
-            "only until the lane-rotate kernel is ported (ROADMAP.md B5)")
-
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
-
-    return {
-        "offsets": torch.from_numpy(as_i32(ht["offsets"])).to(device),
-        "positions": put(ht["positions"], np.int32),
-        "ginter": torch.from_numpy(as_i32(ht["ginter"])).to(device),
+        pos = np.asarray(pos).reshape(-1, ROW128)
+        gin = ginter_rows(gin)
+    out = {
+        "positions": torch.from_numpy(
+            np.ascontiguousarray(pos, np.int32)).to(device),
+        "ginter": put(gin),
         "base_off": int(ht["base_off"]),
         "genome_max_biased": int(ht["genome_max_biased"]),
     }
+    if use_packed_offsets:
+        if ht.get("opacked") is None:
+            raise ValueError("use_packed_offsets without ht['opacked']")
+        out["offsets"] = put(ht["opacked"])
+        out["obase"] = put(ht["obase"])
+    else:
+        out["offsets"] = put(ht["offsets"])
+    return out
 
 
 def tables_from_numpy(ht: dict, meta: dict, device: torch.device) -> dict:
     """Prepared host tables from either package (urmap_tpu's
     index.store.prepare_tables / load_prepared, or this module's) →
     this package's device tables, plus the layout flags the Mapper
-    needs. This is the state carried across from the reference: both
-    packages then map against the same tables."""
-    tables = tables_to_device(ht, device)
+    needs: ``csr_aligned``, ``gather_tier``, ``row128`` and ``off_bits``
+    ((cnt_bits, block_bits) when the packed offsets are in use: the
+    table has them and URMAP_NO_PACKED_OFFSETS is not 1). This is the
+    state carried across from the reference: both packages then map
+    against the same tables."""
+    row128 = meta.get("layout") == "row128"
+    off_bits = None
+    if (row128 and ht.get("opacked") is not None
+            and os.environ.get("URMAP_NO_PACKED_OFFSETS") != "1"):
+        off_bits = tuple(meta["off_bits"])
+    tables = tables_to_device(ht, device,
+                              use_packed_offsets=off_bits is not None)
     tables["csr_aligned"] = bool(meta["csr_aligned"])
     tables["gather_tier"] = effective_gather_tier(meta)
+    tables["row128"] = row128
+    tables["off_bits"] = off_bits
     return tables

@@ -12,22 +12,40 @@ from __future__ import annotations
 
 
 class Counter:
-    """Launches of a kernel and calls of its plain version."""
+    """Launches of a kernel and calls of its plain version. ``widths``
+    splits the launches by output width, for the wrappers that record
+    it (the window fetch: one kernel, the verify, DP and rescue shapes)."""
 
     def __init__(self, name: str):
         self.name = name
-        self.launches = 0
-        self.plain_calls = 0
+        self.reset()
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+        self.widths: dict[int, int] = {}
+
+    def launched(self, width: int | None = None) -> None:
+        self.launches += 1
+        if width is not None:
+            self.widths[width] = self.widths.get(width, 0) + 1
 
 
 def counters() -> list[Counter]:
-    """Every kernel's counter, in main-path order (B7's bits mode has
-    no caller on the mapping path; its counter comes last)."""
-    from urmap_tpu_torch.kernels import banded_dp, seed_slots, tb_dp, vote
+    """Every kernel's counter, in main-path order. The last four have
+    no caller on the mapping path: B1' in both modes (the byte-genome
+    DP; the mapper aligns from the packed genome), the literal rotate of
+    B5 (the fetch entries never gather whole rows) and B7's bits mode."""
+    from urmap_tpu_torch.kernels import (banded_dp, lane_rotate, seed_slots,
+                                         tb_dp, vote)
 
-    return [seed_slots.counter, vote.counter, banded_dp.counter,
-            banded_dp.clip_counter, tb_dp.counter, tb_dp.bits_counter]
+    return [seed_slots.counter, lane_rotate.fetch_counter, vote.counter,
+            lane_rotate.window_counter, banded_dp.counter,
+            banded_dp.clip_counter, tb_dp.counter,
+            banded_dp.semiglobal_counter, banded_dp.semiglobal_clip_counter,
+            lane_rotate.rotate_counter, tb_dp.bits_counter]
+
+
+# counters of kernels that the mapping path never launches
+OFF_PATH = ("banded_semiglobal", "banded_semiglobal_clip", "rotate_narrow",
+            "tb_bits")

@@ -32,12 +32,17 @@ build_log = {"seconds": None, "ptxas": "", "path": None}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # entry point → argument types (pointers, ints, then the stream)
 _SIGNATURES = {
     "urmap_seed_slots": [_P] * 6 + [_I] * 6 + [_P],
     "urmap_vote": [_P, _P, _P] + [_I] * 3 + [_P],
     "urmap_banded_dp": [_P] * 7 + [_I] * 9 + [_P],
     "urmap_tb_dp": [_P] * 7 + [_I] * 8 + [_P],
+    "urmap_row128_fetch": [_P, _L, _I, _P, _P, _L, _I, _I, _P],
+    "urmap_rotate_narrow": [_P, _P, _P, _L, _I, _I, _P],
+    "urmap_banded_semiglobal": [_P, _L, _P, _P, _P] + [_P] * 4 + [_I] * 9
+    + [_P],
 }
 
 

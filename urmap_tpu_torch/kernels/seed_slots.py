@@ -46,5 +46,5 @@ def seed_slots_words(rpacked: torch.Tensor, rnplane: torch.Tensor,
         slots.data_ptr(), offs.data_ptr(), valid.data_ptr(), n, nw, L, k, q,
         slot_bits, _build.stream_ptr(dev))
     _build.check(err, "urmap_seed_slots")
-    counter.launches += 1
+    counter.launched()
     return slots, offs, valid

@@ -63,7 +63,7 @@ def tb_dops_from_windows(windows: torch.Tensor, reads: torch.Tensor,
         return _plain.tb_dops_from_windows(windows, reads, lengths, hw=hw,
                                            sc=sc)
     score, ok, _bits, dops = _launch(windows, reads, lengths, hw, sc, True)
-    counter.launches += 1
+    counter.launched()
     return score, dops, ok.to(torch.bool)
 
 
@@ -75,5 +75,5 @@ def tb_from_windows(windows: torch.Tensor, reads: torch.Tensor,
         bits_counter.plain_calls += 1
         return _plain.tb_from_windows(windows, reads, lengths, hw=hw, sc=sc)
     score, bend, bits, _ = _launch(windows, reads, lengths, hw, sc, False)
-    bits_counter.launches += 1
+    bits_counter.launched()
     return score, bend, bits

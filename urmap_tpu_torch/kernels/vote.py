@@ -32,5 +32,5 @@ def vote(cand: torch.Tensor, *, v: int):
                                   votes.data_ptr(), n, m, v,
                                   _build.stream_ptr(cand.device))
     _build.check(err, "urmap_vote")
-    counter.launches += 1
+    counter.launched()
     return top, votes

@@ -1,13 +1,15 @@
-"""Host CIGAR/NM for single-end results (numpy + the C++ codecs).
+"""Host CIGAR/NM for mapping results (numpy + the C++ codecs).
 
-Copies of what urmap_tpu/map/cigar.py's single-end SAM path runs:
+Copies of what urmap_tpu/map/cigar.py's SAM paths run:
 M-only winners get "{len}M" and an NM from the ungapped score; gapped
 winners replay the device traceback records (MapResult.tb, kernel B6)
 in O(L); rows without valid records (lane overflow, a walk that left
 the band, stale score/pos/strand, clip-rescued rows, or the traceback
 off) re-run the banded DP with traceback in C++ (io.native),
 clip-rescued rows in clip mode. SAM records then come from
-io.sam_native.format_single_end.
+io.sam_native.format_single_end / format_paired. The pure-Python path
+(``traceback``, ``cigars_nm_fast``, ``cigars_for_result``) serves
+PairedMapper.format_py and pair._ref_spans.
 """
 
 from __future__ import annotations
@@ -463,3 +465,241 @@ def cigars_nm_blob(genome: np.ndarray, raw_codes: np.ndarray, result,
         if wrote >= 0:
             return out[:wrote].tobytes(), off, nm, span
         cap *= 2
+
+
+# urmap_tpu/map/cigar.py:traceback, cigars_nm_fast, add_truncation_clips,
+# cigars_for_result — the pure-Python CIGAR path of the paired SAM
+# records (PairedMapper.format_py) and of pair._ref_spans
+NEG = -(1 << 28)
+
+
+def traceback(genome: np.ndarray, read: np.ndarray, start: int,
+              sc: ScoreConfig, pad: int = 48,
+              clip_open: int | None = None) -> tuple[str, int, int]:
+    """Returns (cigar, score, nm) for the alignment of the read starting
+    at genome position ``start``. nm = edit distance (SAM NM).
+
+    ``clip_open``: end-clipped mode (map/dp.py banded_from_windows) —
+    the alignment may begin at any read row (prefix soft-clipped, one
+    clip_open charge, genome start stays exactly ``start``) and end at
+    any read row (suffix clipped, one charge)."""
+    g = genome[start : start + len(read) + pad].astype(np.int16)
+    r = read.astype(np.int16)
+    G, L = len(g), len(r)
+    H = np.full((L + 1, G + 1), NEG, np.int32)
+    E = np.full((L + 1, G + 1), NEG, np.int32)
+    F = np.full((L + 1, G + 1), NEG, np.int32)
+    open_, ext = sc.gap_open, sc.gap_extend
+    H[0, 0] = 0
+    j1 = np.arange(1, G + 1)
+    for i in range(1, L + 1):
+        if clip_open is not None and i >= 2:
+            # start-clip state: read bases [0, i-1) clipped, genome at POS
+            H[i - 1, 0] = max(int(H[i - 1, 0]), clip_open)
+        E[i] = np.maximum(H[i - 1] + open_, E[i - 1] + ext)
+        sub = np.where(g == r[i - 1], sc.match, sc.mismatch).astype(np.int32)
+        diag = np.full(G + 1, NEG, np.int32)
+        diag[1:] = H[i - 1, :-1] + sub
+        T = np.maximum(diag, E[i])
+        # F[i, j] = max_{k<j}(T[k] - (k+1)*ext) + open + j*ext
+        runmax = np.maximum.accumulate(T - np.arange(1, G + 2) * ext)
+        F[i, 1:] = runmax[:-1] + open_ + j1 * ext
+        H[i] = np.maximum(T, F[i])
+    iend, jend = L, int(np.argmax(H[L]))
+    score = int(H[L, jend])
+    if clip_open is not None:
+        for i in range(1, L):
+            # j ≥ 1: an end-clip must leave a non-empty aligned segment
+            # (H[i, 0] holds the injected bare start-clip state)
+            j = int(np.argmax(H[i, 1:])) + 1
+            s = int(H[i, j]) + clip_open
+            if s > score:
+                score, iend, jend = s, i, j
+
+    ops: list[str] = []
+    i, j = iend, jend
+    state = "H"
+    while i > 0 or j > 0:
+        if (clip_open is not None and state == "H" and j == 0
+                and 0 < i < L and H[i, 0] == clip_open):
+            # start-clip entry: bases [0, i) are soft-clipped
+            ops.extend("S" * i)
+            i = 0
+            break
+        if state == "H":
+            if i > 0 and j > 0 and H[i, j] == H[i - 1, j - 1] + (
+                sc.match if g[j - 1] == r[i - 1] else sc.mismatch
+            ):
+                ops.append("M" if g[j - 1] == r[i - 1] else "X")
+                i -= 1; j -= 1
+            elif i > 0 and H[i, j] == E[i, j]:
+                state = "E"
+            elif j > 0 and H[i, j] == F[i, j]:
+                state = "F"
+            else:  # pragma: no cover
+                raise AssertionError(f"traceback failed at ({i},{j})")
+        elif state == "E":
+            ops.append("I")
+            if H[i - 1, j] + open_ == E[i, j]:
+                state = "H"
+            i -= 1
+        else:  # F
+            ops.append("D")
+            if H[i, j - 1] + open_ == F[i, j]:
+                state = "H"
+            j -= 1
+    ops.reverse()
+    if clip_open is not None and iend < L:
+        ops.extend("S" * (L - iend))       # end-clip: bases [iend, L)
+    s, e = 0, len(ops)
+    while s < e and ops[s] == "I":
+        ops[s] = "S"; s += 1
+    while e > s and ops[e - 1] == "I":
+        ops[e - 1] = "S"; e -= 1
+    nm = sum(1 for op in ops if op in "XID")
+    cigar_ops = ["M" if op == "X" else op for op in ops]
+    out: list[str] = []
+    prev, run = None, 0
+    for op in cigar_ops:
+        if op == prev:
+            run += 1
+        else:
+            if prev is not None:
+                out.append(f"{run}{prev}")
+            prev, run = op, 1
+    out.append(f"{run}{prev}")
+    return "".join(out), score, nm
+
+
+def cigars_nm_fast(genome: np.ndarray, strand_codes: np.ndarray, result,
+                   sc: ScoreConfig, raw_lengths=None,
+                   clip_open: int | None = None, clip_rows=None):
+    """Vectorized CIGAR/NM for a MapResult (native-writer fast path).
+
+    M-only winners (the vast majority) get "{L}M" and an NM derived from
+    the device ungapped score — mm = (L·match − ung)/(match − mismatch) —
+    with no genome gather; only gapped winners run the Python traceback.
+    ``clip_rows``: per-row clip-rescue flags (those rows traceback in
+    end-clip mode; see _clip_groups).
+
+    Returns (cigars object-array[n], nm int32[n], ref_span int32[n]);
+    unmapped entries hold ("", -1, 0).
+    """
+    n = len(result.mapped)
+    L = result.lengths.astype(np.int64)
+    mapped = result.mapped.astype(bool)
+    gapped = result.gapped.astype(bool)
+    denom = sc.match - sc.mismatch
+    assert result.ungapped is not None, "device output lacks 'ungapped'"
+    ung = result.ungapped.astype(np.int64)
+    m_only = mapped & ~gapped
+    nm = np.where(m_only, (L * sc.match - ung) // denom, -1).astype(np.int32)
+    span = np.where(m_only, L, 0).astype(np.int32)
+    cig = np.where(m_only, np.char.add(L.astype("U6"), "M"), "").astype(object)
+    grows_all = np.nonzero(mapped & gapped)[0]
+    handled = np.zeros(grows_all.size, bool)
+    if clip_open is None and grows_all.size:
+        use, ti = _tb_select(result, grows_all, clip_rows)
+        if use.size:
+            # ``strand_codes`` is already strand-applied here (this
+            # entry point's contract) — replay directly
+            tb = result.tb
+            lens_u = np.asarray(result.lengths)[use]
+            (cigs_u, nm_u, span_u, okd) = dops_decode_batch(
+                tb["dops"], tb["cols"][ti], lens_u,
+                genome, np.asarray(result.pos)[use], strand_codes[use])
+            good = np.nonzero(okd)[0]
+            for g in good:
+                cig[use[g]] = cigs_u[g]
+            nm[use[good]] = nm_u[good]
+            span[use[good]] = span_u[good]
+            handled[np.searchsorted(grows_all, use[good])] = True
+    for rows, co in _clip_groups(result, sc, clip_open, clip_rows,
+                                 rows=grows_all[~handled]):
+        if rows.size == 0:
+            continue
+        nat = traceback_batch_native(
+            genome, result.pos[rows], strand_codes[rows],
+            result.lengths[rows], sc, clip_open=co)
+        if nat is not None:
+            cigs, nms_, scores_, spans_ = nat
+            dev_s = np.asarray(result.score)[rows]
+            bad = np.nonzero((scores_ < dev_s) if co is not None
+                             else (scores_ != dev_s))[0]
+            if bad.size:  # pragma: no cover - consistency
+                raise AssertionError(
+                    f"native traceback score mismatch at rows {rows[bad[:5]]}")
+            for idx, i in enumerate(rows):
+                cig[i] = cigs[idx]
+            nm[rows] = nms_
+            span[rows] = spans_
+        else:
+            from urmap_tpu_torch.io.sam import ref_consumed
+            for i in rows:
+                li = int(L[i])
+                c, score, e = traceback(genome, strand_codes[i][:li],
+                                        int(result.pos[i]), sc,
+                                        clip_open=co)
+                dev_i = int(result.score[i])
+                if (score < dev_i if co is not None
+                        else score != dev_i):  # pragma: no cover
+                    raise AssertionError(
+                        f"traceback score {score} != device "
+                        f"{result.score[i]}")
+                cig[i] = c
+                nm[i] = e
+                span[i] = ref_consumed(c)
+    if raw_lengths is not None:
+        add_truncation_clips(cig, result, raw_lengths)
+    return cig, nm, span
+
+
+def add_truncation_clips(cig, result, raw_lengths) -> None:
+    """Reads longer than max_read_len were truncated for mapping; the
+    unmapped tail must appear as a soft clip so CIGAR length == SEQ
+    length (SAM v1.6 §1.4.6). Trailing S for forward alignments; the
+    truncated tail of a reverse-complemented record is emitted FIRST,
+    so leading S. Mutates ``cig`` in place."""
+    raw = np.asarray(raw_lengths)
+    extra = raw - np.asarray(result.lengths)
+    for i in np.nonzero(result.mapped & (extra > 0))[0]:
+        if result.strand[i]:
+            cig[i] = f"{extra[i]}S" + cig[i]
+        else:
+            cig[i] = cig[i] + f"{extra[i]}S"
+
+
+def cigars_for_result(genome: np.ndarray, reads_codes: np.ndarray,
+                      result, sc: ScoreConfig, raw_lengths=None,
+                      clip_open: int | None = None,
+                      clip_rows=None) -> tuple[list[str], list[int]]:
+    """CIGAR + NM per read for a MapResult. ``reads_codes`` must be
+    strand-applied (rc already taken for strand==1 reads)."""
+    cigars: list[str] = []
+    nms: list[int] = []
+    match, mis = sc.match, sc.mismatch
+    for i in range(len(result.mapped)):
+        L = int(result.lengths[i])
+        if not result.mapped[i]:
+            cigars.append("*"); nms.append(0)
+            continue
+        if not result.gapped[i]:
+            cigars.append(f"{L}M")
+            seg = genome[int(result.pos[i]) : int(result.pos[i]) + L]
+            nms.append(int(np.sum(seg != reads_codes[i][:L])))
+            continue
+        co = clip_open
+        if co is None and clip_rows is not None and clip_rows[i]:
+            co = sc.clip_open   # clip-rescued row (MapResult.clipped)
+        cigar, score, nm = traceback(
+            genome, reads_codes[i][:L], int(result.pos[i]), sc,
+            clip_open=co)
+        dev_i = int(result.score[i])
+        if (score < dev_i if co is not None
+                else score != dev_i):  # pragma: no cover - consistency
+            raise AssertionError(
+                f"traceback score {score} != device score {result.score[i]}")
+        cigars.append(cigar); nms.append(nm)
+    if raw_lengths is not None:
+        add_truncation_clips(cigars, result, raw_lengths)
+    return cigars, nms

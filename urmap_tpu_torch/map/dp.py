@@ -128,3 +128,48 @@ def banded_packed(ginter: torch.Tensor, base_off: int,
                                  rpacked, rnplane, lengths)
         ung = (lengths - mm) * sc.match + mm * sc.mismatch
     return scores, d0, ung.to(torch.int32), lengths + d1 - d0
+
+
+def banded_semiglobal(genome: torch.Tensor, cand_starts: torch.Tensor,
+                      reads: torch.Tensor, lengths: torch.Tensor, *,
+                      hw: int, sc: ScoreConfig,
+                      clip_open: int | None = None):
+    """Banded DP over the byte genome, the plain version of kernel B1'
+    (kernels/banded_dp.py banded_semiglobal): genome uint8[G] codes,
+    cand_starts int32[N] (where read base 0 is expected; any value),
+    reads uint8[N, L] strand-applied, lengths int32[N] →
+    (scores, d0, ungapped, span).
+
+    The window of candidate n is genome[cand - hw : cand + L + hw] with
+    every index clamped to [0, G-1] on its own (cells outside repeat the
+    boundary code); ungapped is the match/mismatch sum over the read at
+    POS = cand + d0, re-gathered from the genome with the same clamp,
+    not B1's in-band diagonal sum: under ``clip_open`` POS may lie
+    outside the band. span = lengths + d1 - d0 (meaningless under
+    ``clip_open``)."""
+    N, L = reads.shape
+    G = genome.shape[0]
+    dev = reads.device
+    cand = cand_starts.to(torch.int64)
+    widx = cand[:, None] - hw + torch.arange(L + 2 * hw, device=dev)[None, :]
+    windows = genome[widx.clamp(0, G - 1)]
+    scores, d0, d1, _ = banded_from_windows(windows, reads, lengths, hw=hw,
+                                            sc=sc, clip_open=clip_open)
+    col = torch.arange(L, device=dev)[None, :]
+    gidx = (cand + d0)[:, None] + col
+    per = torch.where(genome[gidx.clamp(0, G - 1)] == reads, sc.match,
+                      sc.mismatch)
+    ung = torch.where(col < lengths[:, None], per, 0) \
+        .sum(dim=1, dtype=torch.int32)
+    return scores, d0, ung, lengths + d1 - d0
+
+
+def banded_dispatch(genome: torch.Tensor, cand_starts: torch.Tensor,
+                    reads: torch.Tensor, lengths: torch.Tensor, *, hw: int,
+                    sc: ScoreConfig, clip_open: int | None = None):
+    """banded_semiglobal by kernel B1' on a CUDA tensor, by the plain
+    version above on a CPU tensor."""
+    from urmap_tpu_torch.kernels import banded_dp
+
+    return banded_dp.banded_semiglobal(genome, cand_starts, reads, lengths,
+                                       hw=hw, sc=sc, clip_open=clip_open)

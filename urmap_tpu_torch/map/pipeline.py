@@ -40,6 +40,20 @@ from urmap_tpu_torch.map.select import select_hits
 _COMP = np.asarray(alphabet.COMP_CODE)
 
 
+def revcomp_batch(reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Per-row reverse complement of the first ``lengths`` codes of
+    uint8[B, L] reads. The reference complements, reverses the whole
+    row and rotates it left by L - len, which also reverses the pad
+    lanes among themselves; callers keep the pad uniform READ_N, and
+    this index form gives the same lanes either way."""
+    B, L = reads.shape
+    comp = torch.from_numpy(_COMP).to(reads.device)[reads.long()]
+    col = torch.arange(L, dtype=torch.int64, device=reads.device)[None, :]
+    ln = lengths.long()[:, None]
+    src = torch.where(col < ln, ln - 1 - col, L - 1 - col + ln)
+    return torch.gather(comp, 1, src)
+
+
 # urmap_tpu/map/pipeline.py:MapResult
 @dataclass
 class MapResult:
@@ -153,9 +167,19 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     slots, offs, valid = seed_slots.seed_slots_words(
         rpacked2, rnplane2, lengths2, L, k=icfg.k, q=q,
         slot_bits=icfg.slot_bits)
+    # packed-offsets coherence: the tables and the decode must agree, or
+    # every candidate is garbage and every read comes back unmapped
+    off_bits = tables["off_bits"]
+    if ("obase" in tables) != (off_bits is not None):
+        raise ValueError("tables carry packed offsets without off_bits "
+                         "(or off_bits without the packed offsets)")
     cand = gather_candidates(tables["offsets"], tables["positions"], slots,
                              offs, valid, p=p,
-                             csr_aligned=tables["csr_aligned"])
+                             csr_aligned=tables["csr_aligned"],
+                             row128=tables["row128"],
+                             obase=tables.get("obase"),
+                             off_cnt_bits=off_bits[0] if off_bits else 0,
+                             off_block_bits=off_bits[1] if off_bits else 0)
     top_cand, votes = vote.vote(cand, v=v)                  # [2B, V]
     if mcfg.min_votes > 1:
         # vote floor with per-read fallback (config.MapConfig.min_votes)
@@ -473,11 +497,14 @@ I16_FLOOR = -(1 << 15)
 
 
 def pack_out(out: dict) -> torch.Tensor:
-    """Per-read calls → one int32 [B, 3] array."""
+    """Per-read calls → one int32 [B, 3] array. The per-mate dicts of
+    the paired step carry no ``dp_ran``: the bit is then 0."""
     def sat16(x):
         return x.clamp(min=I16_FLOOR)
 
     def bit(name, shift):
+        if name not in out:
+            return 0
         return out[name].to(torch.int32) << shift
 
     flags = (bit("mapped", 0) | bit("gapped", 1) | bit("dp_ran", 2)
@@ -540,8 +567,10 @@ class Mapper:
     The surface of urmap_tpu.map.Mapper — prepack / start_batch /
     finish_batch / map_codes — so utils.stream.run_stream drives it
     unchanged. ``device`` is required ("cuda", "cuda:1", "cpu"): on
-    CUDA the seed, vote, DP and traceback stages launch their kernels,
-    on the CPU they run the plain versions. ``prepared``: (host
+    CUDA the seed, table-fetch, vote, DP and traceback stages launch
+    their kernels, on the CPU they run the plain versions. The table
+    layout (classic, aligned or row128, with or without packed
+    offsets) comes with the prepared tables. ``prepared``: (host
     tables, meta) from either package's prepare_tables /
     load_prepared, in place of preparing them from ``index`` here."""
 
@@ -570,6 +599,9 @@ class Mapper:
             prepared = load_prepared(index, p) or prepare_tables(index, p)
         ht, meta = prepared
         self.tables = tables_from_numpy(ht, meta, self.device)
+        self.csr_aligned = self.tables["csr_aligned"]
+        self.row128 = self.tables["row128"]
+        self.off_bits = self.tables["off_bits"]
         if self.tables["gather_tier"] is not None:
             raise NotImplementedError(
                 "the tiered gather (URMAP_TIER_GATHER=1) is not ported "

@@ -105,21 +105,40 @@ def align_row_words(p: int) -> int:
 
 def _aligned_rows_fetch(positions: torch.Tensor, flat_starts: torch.Tensor,
                         width: int, rw: int) -> torch.Tensor:
-    """``width`` entries from each (row-contained) CSR offset of the
-    aligned layout: one rw-word row per start, shifted left by the
-    offset within the row with SENTINEL fill."""
+    """``width`` entries from each (row-contained) CSR offset of a 1-D
+    table whose runs never cross a row of ``rw`` words (the aligned
+    layout; the row128 layout at rw = 128): one row per start, shifted
+    left by the offset within the row with SENTINEL fill. Starts are
+    taken as uint32 values (a human-genome table passes 2^31 entries)
+    and the row index is clipped to the last full row. The plain
+    version of kernel B5's row entry (kernels/lane_rotate.py)."""
     nrows = positions.shape[0] // rw
-    r0 = torch.div(flat_starts, rw, rounding_mode="floor").clamp(0, nrows - 1)
-    t = (flat_starts % rw)[:, None] + torch.arange(
+    s = flat_starts.to(torch.int64) & 0xFFFF_FFFF
+    r0 = torch.div(s, rw, rounding_mode="floor").clamp(max=nrows - 1)
+    t = (s % rw)[:, None] + torch.arange(
         width, dtype=torch.int64, device=positions.device)[None, :]
     got = positions[r0[:, None] * rw + t.clamp(max=rw - 1)]
     return torch.where(t < rw, got, SENTINEL)
 
 
+def _row128_fetch(positions2d: torch.Tensor, flat_starts: torch.Tensor,
+                  width: int) -> torch.Tensor:
+    """Dense-row fetch of the row128 layout: ``positions2d`` is the
+    table shaped [R, 128], every run lives inside one row
+    (store.align_runs_fixed), so one row per start yields the first
+    ``width`` entries at each CSR offset, with SENTINEL in the lanes
+    that pass the row's end."""
+    return _aligned_rows_fetch(positions2d.reshape(-1), flat_starts, width,
+                               128)
+
+
 def gather_candidates(offsets: torch.Tensor, positions: torch.Tensor,
                       slots: torch.Tensor, seed_offs: torch.Tensor,
                       valid: torch.Tensor, *, p: int,
-                      csr_aligned: bool = False) -> torch.Tensor:
+                      csr_aligned: bool = False, row128: bool = False,
+                      obase: torch.Tensor | None = None,
+                      off_cnt_bits: int = 0,
+                      off_block_bits: int = 0) -> torch.Tensor:
     """CSR gather: per (read, seed), up to P genome positions →
     candidate starts int32[N, Q*P] (SENTINEL where invalid).
 
@@ -127,23 +146,42 @@ def gather_candidates(offsets: torch.Tensor, positions: torch.Tensor,
     to int64 here); ``positions`` biased int32. Classic layout: one
     straddle-row window per seed, entries valid for lane < count.
     Aligned layout (``csr_aligned``): runs never cross a row, pads are
-    SENTINEL, entries valid for lane < count and != SENTINEL."""
+    SENTINEL, entries valid for lane < count and != SENTINEL.
+    ``row128``: positions is [R, 128], one dense row per seed. Both are
+    fetched by kernel B5's row entry on a CUDA device, whatever the
+    table's length, and by its plain version on the CPU. ``obase``: ``offsets`` is the packed table of
+    store.pack_offsets_row128: one word carries two uint16 slot
+    entries (even slot in the low half), each
+    (start - obase[slot >> block_bits]) << cnt_bits | padded count."""
     from urmap_tpu_torch import genome_pack as gpk
+    from urmap_tpu_torch.kernels import lane_rotate
 
     n, q = slots.shape
     sl = slots.long()
-    start = offsets[sl].long() & 0xFFFF_FFFF
-    cnt = ((offsets[sl + 1].long() & 0xFFFF_FFFF) - start).to(torch.int32)
+    if obase is not None:
+        w = offsets[sl >> 1]
+        u = torch.where((sl & 1) == 1, srl(w, 16), w) & 0xFFFF
+        b = obase[sl >> off_block_bits].long() & 0xFFFF_FFFF
+        start = b + (u >> off_cnt_bits).long()
+        cnt = u & ((1 << off_cnt_bits) - 1)
+    else:
+        start = offsets[sl].long() & 0xFFFF_FFFF
+        cnt = ((offsets[sl + 1].long() & 0xFFFF_FFFF) - start) \
+            .to(torch.int32)
     j = torch.arange(p, dtype=torch.int32, device=slots.device)
     ok = (j[None, None, :] < cnt[:, :, None]) & valid[:, :, None]
-    if csr_aligned:
-        pos = _aligned_rows_fetch(positions, start.reshape(-1), p,
-                                  align_row_words(p)).reshape(n, q, p)
-        ok &= pos != SENTINEL
+    flat = start.reshape(-1)
+    if row128:
+        pos = lane_rotate.row128_fetch(positions, flat, p)
+    elif csr_aligned:
+        pos = lane_rotate.row128_fetch(positions, flat, p,
+                                       row_words=align_row_words(p))
     else:
-        pos = gpk.row_gather_window(positions, start.reshape(-1), p,
-                                    row_words=gpk.GATHER_ROW_WORDS) \
-            .reshape(n, q, p)
+        pos = gpk.gather_window(positions, flat, p,
+                                row_words=gpk.GATHER_ROW_WORDS)
+    pos = pos.reshape(n, q, p)
+    if row128 or csr_aligned:
+        ok &= pos != SENTINEL               # pads between runs
     cand = pos - seed_offs[:, :, None]
     return torch.where(ok, cand, SENTINEL).reshape(n, q * p)
 
