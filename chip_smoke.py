@@ -8,15 +8,21 @@ the results.
 
 Phases, each printing one JSON line:
   1. device  — the card (torch and nvidia-smi); exits 1 without CUDA;
-  2. build   — nvcc builds csrc/*.cu for sm_90a, one per source;
+  2. build   — nvcc builds csrc/*.cu for sm_90a and the operator
+               binding csrc/ops.cpp against torch's headers, one per
+               source side by side; torch.ops.load_library loads it;
   3. kernels — B3 seed slots, B4 vote, B1 banded DP (plain and clip
                mode), B5 dense-row fetch (row entry at W = 128, window
-               entry at W = 256 and 384, the literal rotate), B1' the
+               entry at W = 256 and 384, the literal rotate, and the
+               fused entries window_codes at 192 and 1,200 bases and
+               window_mismatches at 10 read words, each over a 1-D and
+               a [R, 128] genome table with starts before the table,
+               in its guard words and past its end), B1' the
                byte-genome DP (plain and clip mode), B6 traceback
-               records and B7 traceback bits at the paths' shapes,
-               kernel vs plain version on the card, exact equality
-               (integer outputs, tolerance 0), median times of
-               synchronised runs beside each kernel's bound;
+               records (N = 2,048, and 128 and 16,384) and B7 traceback
+               bits at the paths' shapes, kernel vs plain version on the card,
+               exact equality (integer outputs, tolerance 0), median
+               times of synchronised runs beside each kernel's bound;
   4. slice   — a 46,709,983-base synthetic genome (GRCh38 chr21's
                length, with N runs; 1% SNPs, 5% indels, 1% adapter
                tails, 1% junk) → FASTA → index (port host build) →
@@ -46,7 +52,8 @@ Phases, each printing one JSON line:
                15th base so that only the rescue scan places it, 1%
                junk) through PairedMapper over the row128 tables →
                cigars_nm_blob per mate → format_paired: correct mates,
-               proper pairs, rescued mates, the W = 384 fetch launched,
+               proper pairs, rescued mates, the 1,200-base rescue
+               window fetched by window_codes,
                tb_dops = batches, per-stage times, and PairResult and
                SAM bytes equal to a CPU PairedMapper's on the first
                2048 pairs;
@@ -317,7 +324,8 @@ def kernel_inputs(rng, n_reads: int, n_dp: int, n_clip: int):
 
     return {"codes": codes, "lengths": lengths, "cand": cand,
             "dp": dp_inputs(n_dp, 0, 0), "clip": dp_inputs(n_clip, 30, 50),
-            "tb": tb_inputs(TB_C), "fetch": fetch_inputs(1 << 18),
+            "tb": tb_inputs(TB_C), "tb_few": tb_inputs(TB_C // 16),
+            "tb_many": tb_inputs(8 * TB_C), "fetch": fetch_inputs(1 << 18),
             "sg": sg_inputs(n_dp)}
 
 
@@ -334,11 +342,13 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     int32 ALU instructions these inputs need at the least over that
     pipe's rate; the counts per unit of work are stated beside each
     case. ``library_ms`` times the nearest single PyTorch call for the
-    three entries of B5 (an indexed ``unfold`` view, ``torch.gather``);
-    it is None elsewhere: no single PyTorch call computes the seed
-    slots, the vote, the banded DP or the traceback DP."""
+    three plain entries of B5 (an indexed ``unfold`` view,
+    ``torch.gather``); it is None elsewhere: no single PyTorch call
+    computes the seed slots, the vote, the banded DP, the traceback DP
+    or a fused fetch (its plain version is ~40 to ~70 calls)."""
     import torch
 
+    from urmap_tpu_torch import _bits
     from urmap_tpu_torch.config import ScoreConfig
     from urmap_tpu_torch import genome_pack as gpk
     from urmap_tpu_torch.kernels import (banded_dp, lane_rotate, seed_slots,
@@ -485,6 +495,60 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
                       lane_rotate.rotate_narrow_plain(rot_rows, rot_off,
                                                       w_dp)),
           "rotate_narrow: the library call differs from the plain version")
+    # The fused fetches over the interleaved genome planes: a 1-D table
+    # (the aligned layout's) and its [R, 128] view (row128), base starts
+    # as int32 on the one and int64 on the other. The plain version is
+    # the window entry's plain version followed by the array ops, which
+    # the entry must equal on every lane: starts before the table, in
+    # the guard words and past its end are among them. Bytes: the
+    # starts, the table words under the window's bases, the read's words
+    # and length for the mismatch count; the codes or counts out.
+    ginter_np, base_off = gpk.pack_genome(x["sg"][0])
+    ginter = put(_bits.as_i32(ginter_np))
+    n_bases = x["sg"][0].shape[0]
+    tables = {"": ginter, "_row128": ginter.view(-1, 128)}
+
+    def base_starts(n, length, dtype):
+        st = rng.integers(0, n_bases - length, size=n)
+        st[:12] = [0, 15, 16, -1, -16, -17, -5000, n_bases - 7,
+                   n_bases + 3000, n_bases + 10_000_000, 2**31 - 5000,
+                   -(2**31)]
+        return put(st.astype(dtype))
+
+    def used_words(st, lens):
+        """Table words under bases [start, start + len) of each row."""
+        r = st.long() % 16
+        return int((2 * ((r + lens.long() + 15) // 16)).sum())
+
+    def codes_case(name, n, length, table, dtype):
+        st = base_starts(n, length, dtype)
+        cases[name] = (
+            lambda: (lane_rotate.window_codes(table, base_off, st, length),),
+            lambda: (gpk.gather_codes_plain(table, base_off, st, length,
+                                            fetch=gpk.row128_window_fetch),),
+            (table, st), 0,
+            nbytes((st,)) + 4 * used_words(st, torch.full_like(st, length))
+            + n * length)
+
+    mm_n = n_reads * V // 8
+    mm_sel = torch.arange(mm_n, device=dev) % n_reads
+    mm_rp, mm_rn, mm_len = rp[mm_sel], rn[mm_sel], lens[mm_sel]
+    for suffix, table in tables.items():
+        dtype = np.int64 if suffix else np.int32
+        codes_case("window_codes" + suffix, n_dp, L_MAX + 2 * HW, table,
+                   dtype)
+        st = base_starts(mm_n, L_MAX, dtype)
+        cases["window_mismatches" + suffix] = (
+            lambda table=table, st=st: (lane_rotate.window_mismatches(
+                table, base_off, st, mm_rp, mm_rn, mm_len),),
+            lambda table=table, st=st: (gpk.mismatch_counts_plain(
+                table, base_off, st, mm_rp, mm_rn, mm_len,
+                fetch=gpk.row128_window_fetch),),
+            (table, st), 0,
+            nbytes((st, mm_rp, mm_rn, mm_len))
+            + 4 * used_words(st, mm_len.clamp(0, 16 * nw)) + mm_n * 4)
+    codes_case(f"window_codes_w{RESCUE_W}", max(n_reads // 4 // 32, 1),
+               RESCUE_W, tables["_row128"], np.int32)
     # traceback DP, per band cell and read row: E (add+max) and the ee
     # compare 2; the substitution 2; T (max; diag is compared again, so
     # its add stays plain) 1; the running max (add+max) and H (max) 2;
@@ -492,32 +556,44 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     # selects, merge) 3: 15 (and five plain adds: 20 issued). B7 runs
     # all L rows, its output holds them; B6 needs only the rows below
     # each length, and its walk ~12 more per such row.
-    win, seq, ln, strand = (put(a) for a in x["tb"])
-    srp, srn = gpk.pack_reads(seq, ln, nw)
-    rrp, rrn = gpk.revcomp_words(srp, srn, ln, L_MAX)
-    st1 = (strand == 1)[:, None]
-    tb_reads = gpk.unpack_words_to_codes(torch.where(st1, rrp, srp),
-                                         torch.where(st1, rrn, srn), L_MAX)
-    tb_rows = int(ln.clamp(0, L_MAX).sum())
-    cases["tb_dops"] = (
-        lambda: tb_dp.tb_dops_from_windows(win, tb_reads, ln, hw=HW, sc=sc),
-        lambda: tbmod.tb_dops_from_windows(win, tb_reads, ln, hw=HW, sc=sc),
-        (win, tb_reads, ln), tb_rows * (W * 15 + 12))
+    def tb_args(key):
+        win, seq, ln, strand = (put(a) for a in x[key])
+        srp, srn = gpk.pack_reads(seq, ln, nw)
+        rrp, rrn = gpk.revcomp_words(srp, srn, ln, L_MAX)
+        st1 = (strand == 1)[:, None]
+        return win, gpk.unpack_words_to_codes(
+            torch.where(st1, rrp, srp), torch.where(st1, rrn, srn),
+            L_MAX), ln
+
+    # B6 at the path's 2,048 lanes, at the least tb_cols (128) and at
+    # 16,384
+    for name, key in (("tb_dops", "tb"), ("tb_dops_n128", "tb_few"),
+                      ("tb_dops_n16384", "tb_many")):
+        args = tb_args(key)
+        cases[name] = (
+            lambda args=args: tb_dp.tb_dops_from_windows(*args, hw=HW, sc=sc),
+            lambda args=args: tbmod.tb_dops_from_windows(*args, hw=HW, sc=sc),
+            args, int(args[2].clamp(0, L_MAX).sum()) * (W * 15 + 12))
+    win, tb_reads, ln = tb_args("tb")
     cases["tb_bits"] = (
         lambda: tb_dp.tb_from_windows(win, tb_reads, ln, hw=HW, sc=sc),
         lambda: tbmod.tb_from_windows(win, tb_reads, ln, hw=HW, sc=sc),
         (win, tb_reads, ln), TB_C * L_MAX * W * 15)
     recs = {}
     for name, (kern, plain, inputs, ops, *moved) in cases.items():
-        got, want = kern(), plain()
+        got = kern()
+        t0 = time.perf_counter()
+        want = plain()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        plain_s = time.perf_counter() - t0
         err = max_abs_err(got, want)
         nb = moved[0] if moved else nbytes(inputs + tuple(got))
         by_bytes = nb / HBM_BYTES_PER_S * 1e3
         by_ops = ops / INT32_INSTR_PER_S * 1e3
         rec = {"max_abs_err": err, "ms": time_ms(kern, dev),
-               "plain_ms": time_ms(plain, dev),
+               # a plain version of seconds is timed once, not seven times
+               "plain_ms": time_ms(plain, dev, 7 if plain_s < 1.0 else 1),
                "bound_ms": max(by_bytes, by_ops),
                "bound_by": "bytes" if by_bytes > by_ops else "operations",
                "library_ms": time_ms(library[name], dev)
@@ -528,7 +604,7 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
             rec["negative_scores"] = int((s < 0).sum())
         if name.startswith("banded_semiglobal"):
             rec["gapped"] = int((want[2] < want[0]).sum())
-        if name == "tb_dops":
+        if name.startswith("tb_dops"):
             rec["walk_ok"] = int(want[2].sum())
             rec["gapped"] = int((want[1] & 0x7F7F7F7F).ne(0).any(0).sum())
         recs[name] = rec
@@ -1193,7 +1269,6 @@ def phase_paired(dev, w: dict, mapper128, smi: str, work: str) -> dict:
     rescued = int((np.where(truth["mutated"] == 1, ok1, ok2) & mut).sum())
     junk_unmapped = float(np.concatenate([~m1.mapped[~planted],
                                           ~m2.mapped[~planted]]).mean())
-    w_rescue = 2 * (-(-pm.mcfg.rescue_window // 16) + 1)
     cover = tb_coverage([r.m1 for r in results] + [r.m2 for r in results])
 
     # one pair batch by stage, host clock, medians of three
@@ -1239,8 +1314,10 @@ def phase_paired(dev, w: dict, mapper128, smi: str, work: str) -> dict:
           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
           "profile": prof})
     check_counters(counts, "the paired run")
-    check(counts["row128_window_fetch"].get("widths", {}).get(w_rescue, 0)
-          > 0, f"no window fetch of width {w_rescue} (the rescue window)")
+    check(counts["window_codes"].get("widths", {}).get(
+        pm.mcfg.rescue_window, 0) > 0,
+        f"no window_codes launch of {pm.mcfg.rescue_window} bases (the "
+        "rescue window)")
     check(stats["rescue_rounds"] > 0 and rescued > 0,
           f"no mate rescued ({stats}, {rescued})")
     check(counts["tb_dops"]["launches"] == stats["batches"] == len(results),
@@ -1357,10 +1434,11 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    _build.lib()
+    _build.load()
     ptxas = [ln for ln in _build.build_log["ptxas"].splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "seconds_by_source": _build.build_log["by_source"],
           "library": os.path.relpath(_build.build_log["path"], ROOT),
           "ptxas": ptxas})
 
@@ -1373,7 +1451,10 @@ def main(argv=None) -> int:
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     n_half = min(args.reads, max(args.reads // 2, N_CPU))
-    w = make_world(rng, work, args.reads, n_half, args.pairs, CHR21_LEN)
+    # the genome, reads and pairs come from a stream of their own: a case
+    # added to phase 3 must not change what the paths map
+    w = make_world(np.random.default_rng([args.seed, 1]), work, args.reads,
+                   n_half, args.pairs, CHR21_LEN)
     emit({"phase": "setup", "seconds": w["setup_s"],
           "layouts": [w["prepared"][1]["layout"],
                       w["prepared128"][1]["layout"]],
@@ -1408,41 +1489,57 @@ def main(argv=None) -> int:
         "seed_slots": ("seed_slots.cu", "seed_slots.py:192"),
         "row128_fetch": ("lane_rotate.cu", "lane_rotate.py:120"),
         "vote": ("vote.cu", "vote.py:123"),
+        "window_mismatches": ("lane_rotate.cu", "lane_rotate.py:120"),
+        "window_codes": ("lane_rotate.cu", "lane_rotate.py:120"),
+        f"window_codes_w{RESCUE_W}": ("lane_rotate.cu", "lane_rotate.py:120"),
+        "banded_dp": ("banded_dp.cu", "banded_dp.py:172"),
+        "banded_dp_clip": ("banded_dp.cu", "banded_dp.py:172"),
+        "tb_dops": ("tb_dp.cu", "tb_dp.py:548"),
+        "banded_semiglobal": ("banded_dp.cu", "banded_dp.py:199"),
         "row128_window_fetch": ("lane_rotate.cu", "lane_rotate.py:120"),
         f"row128_window_fetch_w{w_dp}": ("lane_rotate.cu",
                                          "lane_rotate.py:120"),
         f"row128_window_fetch_w{w_rescue}": ("lane_rotate.cu",
                                              "lane_rotate.py:120"),
-        "banded_dp": ("banded_dp.cu", "banded_dp.py:172"),
-        "banded_dp_clip": ("banded_dp.cu", "banded_dp.py:172"),
-        "tb_dops": ("tb_dp.cu", "tb_dp.py:548"),
-        "banded_semiglobal": ("banded_dp.cu", "banded_dp.py:199"),
         "banded_semiglobal_clip": ("banded_dp.cu", "banded_dp.py:199"),
         "rotate_narrow": ("lane_rotate.cu", "lane_rotate.py:120"),
         "tb_bits": ("tb_dp.cu", "tb_dp.py:227"),
     }
-
-    window_widths = {"row128_window_fetch": 2 * (-(-L_MAX // 16) + 1),
-                     f"row128_window_fetch_w{w_dp}": w_dp,
-                     f"row128_window_fetch_w{w_rescue}": w_rescue}
+    # entries that share a counter, told apart by the width it records
+    by_width = {
+        "window_codes": ("window_codes", L_MAX + 2 * HW),
+        f"window_codes_w{RESCUE_W}": ("window_codes", RESCUE_W),
+        "row128_window_fetch": ("row128_window_fetch",
+                                2 * (-(-L_MAX // 16) + 1)),
+        f"row128_window_fetch_w{w_dp}": ("row128_window_fetch", w_dp),
+        f"row128_window_fetch_w{w_rescue}": ("row128_window_fetch",
+                                             w_rescue)}
+    # the same kernel held against its plain version on other inputs in
+    # phase 3: the [R, 128] view of the table, other batch sizes
+    variants = {
+        "window_mismatches": ["window_mismatches_row128"],
+        "window_codes": ["window_codes_row128"],
+        "tb_dops": ["tb_dops_n128", "tb_dops_n16384"]}
 
     def launches_in(counts: dict, name: str) -> int:
-        """Launches of a kernels-line entry in one path's counters; the
-        window fetch is one counter split by width."""
-        if name in window_widths:
-            return counts["row128_window_fetch"].get("widths", {}).get(
-                window_widths[name], 0)
+        """Launches of a kernels-line entry in one path's counters."""
+        if name in by_width:
+            counter, width = by_width[name]
+            return counts[counter].get("widths", {}).get(width, 0)
         return counts[name]["launches"]
 
     # launches: the counts over the three paths (aligned slice, row128
     # slice, paired run), each read just after its run with the counters
     # set to 0 just before it, summed; by path under launches_by_path.
     # banded_semiglobal's path is phase 8 (the winners re-aligned over
-    # the byte genome). The clip mode of B1', the literal rotate and
-    # tb_bits have no caller on any path: 0; phase 3 launched them
-    # phase3_launches times (one compared, eight timed).
+    # the byte genome). The plain window entry serves the classic
+    # layout's positions only, and the clip mode of B1', the literal
+    # rotate and tb_bits have no caller on any path: 0; phase 3 launched
+    # them phase3_launches times (one compared, eight timed).
     paths = {"slice": aligned["counts"], "row128": r128["counts"],
              "paired": pe_counts, "semiglobal": sg_counts}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = []
     for name, (cu, py) in sources.items():
         by_path = {p: launches_in(c, name) for p, c in paths.items()}
@@ -1451,17 +1548,23 @@ def main(argv=None) -> int:
             "replaces": tpu + py, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "phase3_launches": launches_in(phase3, name),
-            **{k: recs[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")}})
-    on_path = [k for k in kernels if k["name"] not in
-               ("banded_semiglobal_clip", "rotate_narrow", "tb_bits")]
-    check(all(k["launches"] > 0 for k in on_path),
+            **{k: recs[name][k] for k in keys},
+            **({"variants": {v: {k: recs[v][k] for k in keys + ("n",)}
+                             for v in variants[name]}}
+               if name in variants else {})})
+    off_path = ("row128_window_fetch", f"row128_window_fetch_w{w_dp}",
+                f"row128_window_fetch_w{w_rescue}", "banded_semiglobal_clip",
+                "rotate_narrow", "tb_bits")
+    check(all(k["launches"] > 0 for k in kernels
+              if k["name"] not in off_path),
           f"a kernel of the paths was never launched: {kernels}")
+    check(all(k["launches"] == 0 for k in kernels if k["name"] in off_path),
+          f"a kernel off the paths was launched there: {kernels}")
     emit({"kernels": kernels,
-          "note": "banded_semiglobal_clip, rotate_narrow and tb_bits have "
-                  "no caller on a path: their launches there are 0, phase "
-                  "3 held each against its plain version"})
+          "note": "row128_window_fetch (the classic layout's fetch), "
+                  "banded_semiglobal_clip, rotate_narrow and tb_bits have "
+                  "no caller on these paths: their launches there are 0, "
+                  "phase 3 held each against its plain version"})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -31,8 +31,11 @@ def test_kernels_match_plain_versions(cuda_device):
     recs = chip_smoke.phase_kernels(cuda_device, np.random.default_rng(1),
                                     4096, 1024, 512)
     assert all(r["max_abs_err"] == 0 for r in recs.values()), recs
-    assert {"tb_dops", "tb_bits", "row128_fetch", "row128_window_fetch",
+    assert {"tb_dops", "tb_dops_n128", "tb_dops_n16384", "tb_bits",
+            "row128_fetch", "row128_window_fetch",
             "row128_window_fetch_w26", "row128_window_fetch_w152",
+            "window_codes", "window_codes_row128", "window_codes_w1200",
+            "window_mismatches", "window_mismatches_row128",
             "rotate_narrow", "banded_semiglobal",
             "banded_semiglobal_clip"} <= set(recs)
 
@@ -62,6 +65,71 @@ def _tb_inputs(seed, n, L, hw, dev):
         reads[i] = r[:L]
     reads[np.arange(L)[None, :] >= lens[:, None]] = 5
     return tuple(torch.from_numpy(a).to(dev) for a in (win, reads, lens))
+
+
+def tb_edge_cases(seed, n, L, hw):
+    """numpy (windows, reads, lengths) for the traceback DP with the
+    cases that pin its edges: row 0 takes hw insertions (the path
+    reaches band cell 0) and then a 3-base deletion, whose chain the
+    walk follows down to cell 0; row 1 takes hw deletions (the path
+    reaches the band's last cell) and then a 2-base insertion there;
+    rows 2, 3, 4 have lengths 0, L + 3 (no last row) and L; the rest are
+    planted indels, drifted anchors and all-N reads of mixed lengths."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, size=(n, L + 4 * hw + 64)).astype(np.uint8)
+    p = 16 + hw                                  # POS inside g's rows
+    win = g[:, 16 : 16 + L + 2 * hw].copy()
+    reads = np.full((n, L), 5, np.uint8)
+    lens = rng.integers(max(L - 20, 1), L + 1, size=n).astype(np.int32)
+    for i in range(n):
+        s = p + (int(rng.integers(-hw - 4, hw + 5)) if i % 5 == 4 else 0)
+        r = g[i, s : s + L + 16].copy()
+        if i % 5 == 1:
+            o, d = int(rng.integers(2, L - 6)), int(rng.integers(1, hw))
+            r = np.concatenate([r[:o], r[o + d :]])
+        if i % 5 == 2:
+            o, d = int(rng.integers(2, L - 6)), int(rng.integers(1, hw))
+            r = np.concatenate([r[:o], rng.integers(0, 4, d), r[o:]])
+        if i % 5 == 3 and i % 2:
+            r[:] = 5
+        reads[i] = r[:L]
+    row = g[0, p:]
+    reads[0] = np.concatenate([row[:6], (row[6 : 6 + hw] + 1) % 4,
+                               row[6:12], row[15:]])[:L]
+    lens[0] = L
+    if n > 1:
+        row = g[1, p:]
+        reads[1] = np.concatenate([row[:6], row[6 + hw : 12 + hw],
+                                   (row[12 + hw : 14 + hw] + 2) % 4,
+                                   row[12 + hw :]])[:L]
+        lens[1] = L
+    for i, ln in ((2, 0), (3, L + 3), (4, L)):
+        if n > i:
+            lens[i] = ln
+    reads[np.arange(L)[None, :] >= lens[:, None]] = 5
+    return win, reads, lens
+
+
+@pytest.mark.parametrize("n", [1, 33, 128, 2048])
+@pytest.mark.parametrize("hw,L", [(16, 160), (16, 150), (16, 37), (8, 160),
+                                  (8, 150), (8, 37)])
+def test_tb_dops_kernel_edges_match_plain(cuda_device, hw, L, n):
+    """B6 with few and many winners, read lengths that are no multiple
+    of 8 or 4, and the edge rows of ``tb_edge_cases``: equal to the plain
+    version on every output."""
+    from urmap_tpu_torch.kernels import tb_dp
+    from urmap_tpu_torch.map import tb as plain
+
+    args = tuple(torch.from_numpy(a).to(cuda_device)
+                 for a in tb_edge_cases(11, n, L, hw))
+    tb_dp.counter.reset()
+    got = tb_dp.tb_dops_from_windows(*args, hw=hw, sc=ScoreConfig())
+    torch.cuda.synchronize()
+    assert tb_dp.counter.launches == 1 and tb_dp.counter.plain_calls == 0
+    want = plain.tb_dops_from_windows(*args, hw=hw, sc=ScoreConfig())
+    for name, g, w in zip(("score", "dops", "walk_ok"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
 
 
 @pytest.mark.parametrize("mode", ["dops", "bits"])
@@ -129,6 +197,93 @@ def test_cuda_mapper_matches_cpu_mapper(cuda_device, max_read_len, tb_bits):
                 # narrow-row gather clamp differently; never read
                 a, b = a[:, got.tb["cols"]], b[:, want.tb["cols"]]
             np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def fused_fetch_inputs(seed, n, length, two_d):
+    """numpy inputs of the fused genome fetches: an interleaved table
+    of packed planes (1-D, or its [R, 128] view), base starts that are
+    negative, 0, at both ends of a word (r = 0 and r = 15), in the guard
+    words, and past the table's end, and read words with lengths."""
+    from urmap_tpu_torch import _bits
+    from urmap_tpu_torch import genome_pack as gpk
+
+    rng = np.random.default_rng(seed)
+    G = 40_000
+    codes = rng.integers(0, 4, G).astype(np.uint8)
+    codes[rng.random(G) < 0.01] = 4
+    inter, base_off = gpk.pack_genome(codes)
+    table = _bits.as_i32(inter)
+    if two_d:
+        table = table.reshape(-1, 128)
+    st = rng.integers(0, G - length, n)
+    edge = [0, 15, 16, 31, -1, -15, -16, -17, -300, -(1 << 20),
+            G - length, G - 3, G + 5, G + 16 * 100, G + (1 << 20),
+            (1 << 31) - 1, -(1 << 31)]
+    st[: len(edge)] = edge[:n]
+    nw = -(-length // 16)
+    rcodes = rng.integers(0, 4, (n, 16 * nw)).astype(np.uint8)
+    rcodes[rng.random(rcodes.shape) < 0.02] = 5
+    lens = rng.integers(0, length + 1, n).astype(np.int32)
+    lens[:4] = [length, 0, 1, 16 * nw][: min(n, 4)]
+    return table, base_off, st, rcodes, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("two_d", [False, True])
+@pytest.mark.parametrize("length", [192, 1200, 37])
+def test_fused_fetch_kernels_match_plain(cuda_device, length, two_d, dtype):
+    """B5's fused entries equal the window entry's plain version
+    followed by the array ops, on every lane and for every start."""
+    from urmap_tpu_torch import genome_pack as gpk
+    from urmap_tpu_torch.kernels import lane_rotate
+
+    n = 3000
+    table, base_off, st, rcodes, lens = fused_fetch_inputs(13, n, length,
+                                                           two_d)
+    dev = cuda_device
+    table = torch.from_numpy(table).to(dev)
+    st = torch.from_numpy(st).to(dev).to(dtype)
+    lens = torch.from_numpy(lens).to(dev)
+    nw = -(-length // 16)
+    rp, rn = gpk.pack_reads(torch.from_numpy(rcodes).to(dev), lens, nw)
+    for c in (lane_rotate.codes_counter, lane_rotate.mismatch_counter):
+        c.reset()
+    got = lane_rotate.window_codes(table, base_off, st, length)
+    want = gpk.gather_codes_plain(table, base_off, st, length,
+                                  fetch=gpk.row128_window_fetch)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    got = gpk.mismatch_counts(table, base_off, st, rp, rn, lens)
+    want = gpk.mismatch_counts_plain(table, base_off, st, rp, rn, lens,
+                                     fetch=gpk.row128_window_fetch)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    for c in (lane_rotate.codes_counter, lane_rotate.mismatch_counter):
+        assert c.launches == 1 and c.plain_calls == 0
+    assert lane_rotate.codes_counter.widths == {length: 1}
+    with pytest.raises(ValueError, match="starts"):
+        lane_rotate.window_codes(table, base_off, st.to(torch.int16), length)
+    with pytest.raises(ValueError, match="table"):
+        lane_rotate.window_codes(table.view(-1, 64), base_off, st, length)
+
+
+def test_operators_refuse_cpu_tensors(cuda_device):
+    """The operators exist for CUDA tensors only: a CPU tensor handed to
+    torch.ops.urmap.* raises, whatever the wrapper would have done."""
+    from urmap_tpu_torch.kernels import _build
+
+    _build.load()
+    cand = torch.zeros((4, 16), dtype=torch.int32)
+    with pytest.raises(NotImplementedError):
+        torch.ops.urmap.vote(cand, 4)
+    table = torch.zeros(256, dtype=torch.int32)
+    starts = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(NotImplementedError):
+        torch.ops.urmap.row128_window_fetch(table, starts, 16)
+    with pytest.raises(NotImplementedError):
+        torch.ops.urmap.window_codes(table, 16, starts, 32)
+    # a CUDA table with CPU starts is refused by the operator's own check
+    with pytest.raises(ValueError, match="starts"):
+        torch.ops.urmap.window_codes(table.to(cuda_device), 16, starts, 32)
 
 
 def _table(seed, rows, dev):
@@ -299,8 +454,8 @@ def test_cuda_paired_mapper_matches_cpu(cuda_device, monkeypatch, row128):
     by_name = {c.name: c for c in counters()}
     assert all(by_name[k].launches > 0 and by_name[k].plain_calls == 0
                for k in ("seed_slots", "vote", "banded_dp", "row128_fetch",
-                         "row128_window_fetch", "tb_dops"))
-    assert by_name["row128_window_fetch"].widths.get(152, 0) > 0
+                         "window_codes", "window_mismatches", "tb_dops"))
+    assert by_name["window_codes"].widths.get(mcfg.rescue_window, 0) > 0
     assert pm.stats["rescue_rounds"] > 0
     want = PairedMapper(Mapper(idx, mcfg, device="cpu")) \
         .map_pair_codes(c1, ln, c2, ln)

@@ -146,6 +146,50 @@ def test_length_above_L_matches_jax():
     assert not got[0][::2].any()
 
 
+@pytest.mark.parametrize("hw,L", [(16, 160), (16, 150), (16, 37), (8, 160),
+                                  (8, 150), (8, 37)])
+def test_edge_cases_match_jax(hw, L):
+    """The rows that pin kernel B6's edges on the card (a deletion chain
+    that reaches band cell 0, an insertion at the band's last cell,
+    lengths 0, L and L + 3, L no multiple of 8 or 4): the plain version
+    the kernel is held to equals the reference on them."""
+    from tests.unit.test_torch_cuda import tb_edge_cases
+
+    n = 33
+    win, reads, lens = tb_edge_cases(11, n, L, hw)
+    want = tuple(np.array(x) for x in jtb.tb_dops_from_windows(
+        win, reads, lens, hw=hw, sc=SC))
+    got = _np(ttb.tb_dops_from_windows(*_t(win, reads, lens), hw=hw, sc=SC))
+    # The reference's jnp twin takes its score at step ``lengths`` even
+    # where that step is a masked no-op of the last 8-row group
+    # (L < lengths <= 8 * ceil(L / 8): row 3, of length L + 3, at
+    # L = 37); the TPU kernel itself, run in interpret mode, has no last
+    # row there and scores 0, and so does the port. Records and walk_ok
+    # agree.
+    quirk = (lens > L) & (lens <= -(-L // 8) * 8)
+    assert quirk[3] == (L == 37) and quirk.sum() == (L == 37)
+    if quirk.any():
+        kern = tuple(np.asarray(x) for x in jtb.tb_dops_from_windows_pallas(
+            win, reads, lens, hw=hw, sc=SC, interpret=True))
+        for name, g, w in zip(("score", "dops", "walk_ok"), got, kern):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        assert (want[0][quirk] != 0).all()
+        want[0][quirk] = 0
+    for name, g, w in zip(("score", "dops", "walk_ok"), got, want):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    # rows 0 and 1 take the planted path: hw insertions then 3
+    # deletions, hw deletions then 2 insertions
+    recs = got[1].view(np.uint8).reshape(-1, n, 4).transpose(1, 0, 2) \
+        .reshape(n, -1)[:, :L]
+    for row, (ins, dels) in enumerate(((hw, 3), (2, hw))):
+        assert got[2][row]
+        assert int((recs[row] >> 6).sum()) == ins
+        assert int((recs[row] & 63).sum()) == dels
+    assert got[0][2] == 0 and not got[2][2] and not recs[2].any()   # empty
+    assert got[0][3] == 0                                  # no last row
+
+
 @pytest.mark.parametrize("mode", ["bits", "dops"])
 def test_matches_pallas_interpret(mode):
     """Once per kernel at a small shape: the port's plain version equals

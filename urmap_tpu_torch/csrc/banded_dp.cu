@@ -49,6 +49,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "urmap_kernels.h"
+
 namespace {
 
 constexpr int kNeg = -(1 << 20);

@@ -1,0 +1,383 @@
+// The kernels' binding to PyTorch: operators of the `urmap` namespace.
+//
+// Each operator checks its tensors (CUDA, dtype, rank, contiguous, shapes),
+// allocates its outputs with at::empty, takes PyTorch's current stream and
+// calls the plain C entry point of its kernel (csrc/*.cu, which include no
+// torch header; the prototypes are csrc/urmap_kernels.h's). An entry point
+// returns cudaGetLastError() after its launch; a non-zero code raises here,
+// where the launch was refused. The operators are implemented for the CUDA
+// key only: a CPU tensor has no kernel and the dispatcher raises. A value
+// the kernels do not take (a dtype, a shape, a band half-width without a
+// compiled kernel) raises ValueError.
+//
+// No pybind, no Python.h: the library is loaded with torch.ops.load_library
+// and the wrappers in kernels/*.py call torch.ops.urmap.<name>.
+
+#include <ATen/ATen.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <torch/library.h>
+
+#include <tuple>
+
+#include "urmap_kernels.h"
+
+namespace {
+
+using at::Tensor;
+
+void require(const Tensor& t, const char* name, at::ScalarType dtype,
+             int64_t ndim) {
+  TORCH_CHECK_VALUE(t.is_cuda(), name, ": expected a CUDA tensor, got ",
+                    t.device());
+  TORCH_CHECK_VALUE(t.scalar_type() == dtype, name, ": expected ", dtype,
+                    ", got ", t.scalar_type());
+  TORCH_CHECK_VALUE(t.dim() == ndim, name, ": expected ", ndim, " dims, got ",
+                    t.dim());
+  TORCH_CHECK_VALUE(t.is_contiguous(), name,
+                    ": expected a contiguous tensor");
+}
+
+void same_device(const Tensor& a, const Tensor& b, const char* name) {
+  TORCH_CHECK_VALUE(a.device() == b.device(), name, ": on ", b.device(),
+                    ", expected ", a.device());
+}
+
+void* stream_of(const Tensor& t) {
+  return c10::cuda::getCurrentCUDAStream(t.device().index()).stream();
+}
+
+void launched(int err, const char* name) {
+  TORCH_CHECK(err == 0, name, ": CUDA error ", err, " at launch");
+}
+
+at::TensorOptions like(const Tensor& t, at::ScalarType dtype) {
+  return t.options().dtype(dtype);
+}
+
+// a table of 32-bit words: the [R, 128] view of the row128 layout or 1-D
+void require_table(const Tensor& table) {
+  TORCH_CHECK_VALUE(
+      table.dim() == 1 || (table.dim() == 2 && table.size(1) == 128),
+      "table: expected 1-D or [R, 128], got ", table.sizes());
+  require(table, "table", at::kInt, table.dim());
+}
+
+// starts of the fused fetches: int32 or int64, widened in the kernel
+int require_starts(const Tensor& table, const Tensor& starts) {
+  TORCH_CHECK_VALUE(
+      starts.scalar_type() == at::kInt || starts.scalar_type() == at::kLong,
+      "starts: expected int32 or int64, got ", starts.scalar_type());
+  require(starts, "starts", starts.scalar_type(), 1);
+  same_device(table, starts, "starts");
+  return starts.scalar_type() == at::kLong ? 1 : 0;
+}
+
+void require_dp(const Tensor& windows, const Tensor& reads,
+                const Tensor& lengths, int64_t hw, const char* name) {
+  require(windows, "windows", at::kByte, 2);
+  require(reads, "reads", at::kByte, 2);
+  require(lengths, "lengths", at::kInt, 1);
+  same_device(windows, reads, "reads");
+  same_device(windows, lengths, "lengths");
+  const int64_t n = reads.size(0), L = reads.size(1);
+  TORCH_CHECK_VALUE(windows.size(0) == n && windows.size(1) == L + 2 * hw &&
+                        lengths.size(0) == n,
+                    name, ": windows ", windows.sizes(), ", reads ",
+                    reads.sizes(), ", lengths ", lengths.sizes());
+}
+
+std::tuple<Tensor, Tensor, Tensor> seed_slots(const Tensor& rpacked,
+                                              const Tensor& rnplane,
+                                              const Tensor& lengths,
+                                              int64_t L, int64_t k, int64_t q,
+                                              int64_t slot_bits) {
+  require(rpacked, "rpacked", at::kInt, 2);
+  require(rnplane, "rnplane", at::kInt, 2);
+  require(lengths, "lengths", at::kInt, 1);
+  same_device(rpacked, rnplane, "rnplane");
+  same_device(rpacked, lengths, "lengths");
+  const int64_t n = rpacked.size(0), nw = rpacked.size(1);
+  TORCH_CHECK_VALUE(L >= k && k >= 1 && k <= 32 && L <= 16 * nw &&
+                        slot_bits >= 1 && slot_bits <= 32 && q >= 1,
+                    "seed_slots: unsupported L=", L, " k=", k, " nw=", nw,
+                    " q=", q, " slot_bits=", slot_bits);
+  TORCH_CHECK_VALUE(rnplane.sizes() == rpacked.sizes(), "rnplane: shape ",
+                    rnplane.sizes(), " != ", rpacked.sizes());
+  TORCH_CHECK_VALUE(lengths.size(0) == n, "lengths: one per read");
+  const c10::cuda::CUDAGuard guard(rpacked.device());
+  Tensor slots = at::empty({n, q}, like(rpacked, at::kInt));
+  Tensor offs = at::empty({n, q}, like(rpacked, at::kInt));
+  Tensor valid = at::empty({n, q}, like(rpacked, at::kBool));
+  launched(urmap_seed_slots(rpacked.data_ptr(), rnplane.data_ptr(),
+                            lengths.data_ptr(), slots.data_ptr(),
+                            offs.data_ptr(), valid.data_ptr(), (int)n,
+                            (int)nw, (int)L, (int)k, (int)q, (int)slot_bits,
+                            stream_of(rpacked)),
+           "urmap_seed_slots");
+  return {slots, offs, valid};
+}
+
+std::tuple<Tensor, Tensor> vote(const Tensor& cand, int64_t v) {
+  require(cand, "cand", at::kInt, 2);
+  const int64_t n = cand.size(0), m = cand.size(1);
+  TORCH_CHECK_VALUE(m >= 1 && m <= 128 && v >= 1 && v <= m,
+                    "vote: unsupported M=", m, ", V=", v, " (M <= 128)");
+  const c10::cuda::CUDAGuard guard(cand.device());
+  Tensor top = at::empty({n, v}, cand.options());
+  Tensor votes = at::empty({n, v}, cand.options());
+  launched(urmap_vote(cand.data_ptr(), top.data_ptr(), votes.data_ptr(),
+                      (int)n, (int)m, (int)v, stream_of(cand)),
+           "urmap_vote");
+  return {top, votes};
+}
+
+std::tuple<Tensor, Tensor, Tensor, Tensor> banded_dp(
+    const Tensor& windows, const Tensor& reads, const Tensor& lengths,
+    int64_t hw, int64_t match, int64_t mismatch, int64_t gap_open,
+    int64_t gap_extend, std::optional<int64_t> clip_open) {
+  TORCH_CHECK_VALUE(hw == 8 || hw == 16 || hw == 32,
+                    "banded_dp: no kernel for hw=", hw,
+                    " (compiled: 8, 16, 32)");
+  require_dp(windows, reads, lengths, hw, "banded_dp");
+  const int64_t n = reads.size(0), L = reads.size(1);
+  const c10::cuda::CUDAGuard guard(windows.device());
+  const auto opts = like(windows, at::kInt);
+  Tensor scores = at::empty({n}, opts), d0 = at::empty({n}, opts),
+         d1 = at::empty({n}, opts), ung = at::empty({n}, opts);
+  launched(urmap_banded_dp(windows.data_ptr(), reads.data_ptr(),
+                           lengths.data_ptr(), scores.data_ptr(),
+                           d0.data_ptr(), d1.data_ptr(), ung.data_ptr(),
+                           (int)n, (int)L, (int)hw, (int)match, (int)mismatch,
+                           (int)gap_open, (int)gap_extend,
+                           clip_open.has_value() ? 1 : 0,
+                           (int)clip_open.value_or(0), stream_of(windows)),
+           "urmap_banded_dp");
+  return {scores, d0, d1, ung};
+}
+
+std::tuple<Tensor, Tensor, Tensor, Tensor> banded_semiglobal(
+    const Tensor& genome, const Tensor& cand_starts, const Tensor& reads,
+    const Tensor& lengths, int64_t hw, int64_t match, int64_t mismatch,
+    int64_t gap_open, int64_t gap_extend, std::optional<int64_t> clip_open) {
+  TORCH_CHECK_VALUE(hw == 8 || hw == 16 || hw == 32,
+                    "banded_semiglobal: no kernel for hw=", hw,
+                    " (compiled: 8, 16, 32)");
+  require(genome, "genome", at::kByte, 1);
+  require(cand_starts, "cand_starts", at::kInt, 1);
+  require(reads, "reads", at::kByte, 2);
+  require(lengths, "lengths", at::kInt, 1);
+  same_device(genome, cand_starts, "cand_starts");
+  same_device(genome, reads, "reads");
+  same_device(genome, lengths, "lengths");
+  const int64_t n = reads.size(0), L = reads.size(1);
+  TORCH_CHECK_VALUE(cand_starts.size(0) == n && lengths.size(0) == n &&
+                        genome.size(0) >= 1,
+                    "banded_semiglobal: genome ", genome.sizes(), ", cand ",
+                    cand_starts.sizes(), ", reads ", reads.sizes(),
+                    ", lengths ", lengths.sizes());
+  const c10::cuda::CUDAGuard guard(genome.device());
+  const auto opts = like(genome, at::kInt);
+  Tensor scores = at::empty({n}, opts), d0 = at::empty({n}, opts),
+         ung = at::empty({n}, opts), span = at::empty({n}, opts);
+  launched(urmap_banded_semiglobal(
+               genome.data_ptr(), (long long)genome.size(0),
+               cand_starts.data_ptr(), reads.data_ptr(), lengths.data_ptr(),
+               scores.data_ptr(), d0.data_ptr(), ung.data_ptr(),
+               span.data_ptr(), (int)n, (int)L, (int)hw, (int)match,
+               (int)mismatch, (int)gap_open, (int)gap_extend,
+               clip_open.has_value() ? 1 : 0, (int)clip_open.value_or(0),
+               stream_of(genome)),
+           "urmap_banded_semiglobal");
+  return {scores, d0, ung, span};
+}
+
+// B6 → (score int32[N], dops int32[DWp, N], walk_ok bool[N]).
+std::tuple<Tensor, Tensor, Tensor> tb_dops(
+    const Tensor& windows, const Tensor& reads, const Tensor& lengths,
+    int64_t hw, int64_t match, int64_t mismatch, int64_t gap_open,
+    int64_t gap_extend) {
+  TORCH_CHECK_VALUE(hw == 8 || hw == 16, "tb_dops: no kernel for hw=", hw,
+                    " (compiled: 8, 16)");
+  require_dp(windows, reads, lengths, hw, "tb_dops");
+  const int64_t n = reads.size(0), L = reads.size(1);
+  const int64_t dwp = ((L + 3) / 4 + 7) / 8 * 8;
+  const c10::cuda::CUDAGuard guard(windows.device());
+  Tensor score = at::empty({n}, like(windows, at::kInt));
+  Tensor dops = at::empty({dwp, n}, like(windows, at::kInt));
+  Tensor ok = at::empty({n}, like(windows, at::kBool));
+  launched(urmap_tb_dops(windows.data_ptr(), reads.data_ptr(),
+                         lengths.data_ptr(), score.data_ptr(), ok.data_ptr(),
+                         dops.data_ptr(), (int)n, (int)L, (int)hw, (int)match,
+                         (int)mismatch, (int)gap_open, (int)gap_extend,
+                         stream_of(windows)),
+           "urmap_tb_dops");
+  return {score, dops, ok};
+}
+
+// B7 → (score int32[N], bend int32[N], bits int32[NWORDS, N]).
+std::tuple<Tensor, Tensor, Tensor> tb_bits(
+    const Tensor& windows, const Tensor& reads, const Tensor& lengths,
+    int64_t hw, int64_t match, int64_t mismatch, int64_t gap_open,
+    int64_t gap_extend) {
+  TORCH_CHECK_VALUE(hw == 8 || hw == 16, "tb_bits: no kernel for hw=", hw,
+                    " (compiled: 8, 16)");
+  require_dp(windows, reads, lengths, hw, "tb_bits");
+  const int64_t n = reads.size(0), L = reads.size(1);
+  const int64_t nwords = (L + 7) / 8 * ((2 * hw + 1 + 7) / 8 * 8);
+  const c10::cuda::CUDAGuard guard(windows.device());
+  Tensor score = at::empty({n}, like(windows, at::kInt));
+  Tensor bend = at::empty({n}, like(windows, at::kInt));
+  Tensor bits = at::empty({nwords, n}, like(windows, at::kInt));
+  launched(urmap_tb_bits(windows.data_ptr(), reads.data_ptr(),
+                         lengths.data_ptr(), score.data_ptr(),
+                         bend.data_ptr(), bits.data_ptr(), (int)n, (int)L,
+                         (int)hw, (int)match, (int)mismatch, (int)gap_open,
+                         (int)gap_extend, stream_of(windows)),
+           "urmap_tb_bits");
+  return {score, bend, bits};
+}
+
+Tensor fetch(const Tensor& table, const Tensor& starts, int64_t width,
+             int64_t row_words, bool window) {
+  require_table(table);
+  require(starts, "starts", at::kLong, 1);
+  same_device(table, starts, "starts");
+  const int64_t M = table.numel();
+  TORCH_CHECK_VALUE(
+      width >= 1 && row_words >= 1 && M >= (window ? width : row_words),
+      "table of ", M, " words: width ", width, ", rows of ", row_words,
+      " words");
+  const int64_t n = starts.size(0);
+  const c10::cuda::CUDAGuard guard(table.device());
+  Tensor out = at::empty({n, width}, table.options());
+  launched(urmap_row128_fetch(table.data_ptr(), (long long)M, (int)row_words,
+                              starts.data_ptr(), out.data_ptr(), (long long)n,
+                              (int)width, window ? 1 : 0, stream_of(table)),
+           "urmap_row128_fetch");
+  return out;
+}
+
+Tensor row128_fetch(const Tensor& table, const Tensor& starts, int64_t width,
+                    int64_t row_words) {
+  TORCH_CHECK_VALUE(table.dim() != 2 || row_words == table.size(1),
+                    "table: rows of ", table.size(table.dim() - 1),
+                    " words, row_words ", row_words);
+  return fetch(table, starts, width, row_words, false);
+}
+
+Tensor row128_window_fetch(const Tensor& table, const Tensor& starts,
+                           int64_t width) {
+  return fetch(table, starts, width, 1, true);
+}
+
+Tensor rotate_narrow(const Tensor& rows, const Tensor& off, int64_t width) {
+  require(rows, "rows", at::kInt, 2);
+  require(off, "off", at::kInt, 1);
+  same_device(rows, off, "off");
+  const int64_t n = rows.size(0), W = rows.size(1);
+  TORCH_CHECK_VALUE(off.size(0) == n && width >= 1 && width <= W,
+                    "rotate_narrow: rows ", rows.sizes(), ", off ",
+                    off.sizes(), ", width ", width);
+  const c10::cuda::CUDAGuard guard(rows.device());
+  Tensor out = at::empty({n, width}, rows.options());
+  launched(urmap_rotate_narrow(rows.data_ptr(), off.data_ptr(),
+                               out.data_ptr(), (long long)n, (int)W,
+                               (int)width, stream_of(rows)),
+           "urmap_rotate_narrow");
+  return out;
+}
+
+Tensor window_codes(const Tensor& ginter, int64_t base_off,
+                    const Tensor& starts, int64_t length) {
+  require_table(ginter);
+  const int starts64 = require_starts(ginter, starts);
+  const int64_t M = ginter.numel();
+  const int64_t width = 2 * ((length + 15) / 16 + 1);
+  TORCH_CHECK_VALUE(length >= 1 && M >= width, "table of ", M,
+                    " words: a window of ", length, " bases takes ", width);
+  const int64_t n = starts.size(0);
+  const c10::cuda::CUDAGuard guard(ginter.device());
+  Tensor out = at::empty({n, length}, like(ginter, at::kByte));
+  launched(urmap_window_codes(ginter.data_ptr(), (long long)M,
+                              (long long)base_off, starts.data_ptr(),
+                              starts64, out.data_ptr(), (long long)n,
+                              (int)length, stream_of(ginter)),
+           "urmap_window_codes");
+  return out;
+}
+
+Tensor window_mismatches(const Tensor& ginter, int64_t base_off,
+                         const Tensor& starts, const Tensor& rpacked,
+                         const Tensor& rnplane, const Tensor& lengths) {
+  require_table(ginter);
+  const int starts64 = require_starts(ginter, starts);
+  require(rpacked, "rpacked", at::kInt, 2);
+  require(rnplane, "rnplane", at::kInt, 2);
+  require(lengths, "lengths", at::kInt, 1);
+  same_device(ginter, rpacked, "rpacked");
+  same_device(ginter, rnplane, "rnplane");
+  same_device(ginter, lengths, "lengths");
+  const int64_t n = starts.size(0), nw = rpacked.size(1);
+  const int64_t M = ginter.numel();
+  TORCH_CHECK_VALUE(nw >= 1 && M >= 2 * (nw + 1), "table of ", M,
+                    " words: a window of ", nw, " read words takes ",
+                    2 * (nw + 1));
+  TORCH_CHECK_VALUE(rpacked.size(0) == n && rnplane.sizes() == rpacked.sizes()
+                        && lengths.size(0) == n,
+                    "window_mismatches: starts ", starts.sizes(),
+                    ", rpacked ", rpacked.sizes(), ", rnplane ",
+                    rnplane.sizes(), ", lengths ", lengths.sizes());
+  const c10::cuda::CUDAGuard guard(ginter.device());
+  Tensor out = at::empty({n}, like(ginter, at::kInt));
+  launched(urmap_window_mismatches(
+               ginter.data_ptr(), (long long)M, (long long)base_off,
+               starts.data_ptr(), starts64, rpacked.data_ptr(),
+               rnplane.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+               (long long)n, (int)nw, stream_of(ginter)),
+           "urmap_window_mismatches");
+  return out;
+}
+
+}  // namespace
+
+TORCH_LIBRARY(urmap, m) {
+  m.def("seed_slots(Tensor rpacked, Tensor rnplane, Tensor lengths, int L, "
+        "int k, int q, int slot_bits) -> (Tensor, Tensor, Tensor)");
+  m.def("vote(Tensor cand, int v) -> (Tensor, Tensor)");
+  m.def("banded_dp(Tensor windows, Tensor reads, Tensor lengths, int hw, "
+        "int match, int mismatch, int gap_open, int gap_extend, "
+        "int? clip_open) -> (Tensor, Tensor, Tensor, Tensor)");
+  m.def("banded_semiglobal(Tensor genome, Tensor cand_starts, Tensor reads, "
+        "Tensor lengths, int hw, int match, int mismatch, int gap_open, "
+        "int gap_extend, int? clip_open) -> (Tensor, Tensor, Tensor, Tensor)");
+  m.def("tb_dops(Tensor windows, Tensor reads, Tensor lengths, int hw, "
+        "int match, int mismatch, int gap_open, int gap_extend) "
+        "-> (Tensor, Tensor, Tensor)");
+  m.def("tb_bits(Tensor windows, Tensor reads, Tensor lengths, int hw, "
+        "int match, int mismatch, int gap_open, int gap_extend) "
+        "-> (Tensor, Tensor, Tensor)");
+  m.def("row128_fetch(Tensor table, Tensor starts, int width, int row_words) "
+        "-> Tensor");
+  m.def("row128_window_fetch(Tensor table, Tensor starts, int width) "
+        "-> Tensor");
+  m.def("rotate_narrow(Tensor rows, Tensor off, int width) -> Tensor");
+  m.def("window_codes(Tensor ginter, int base_off, Tensor starts, "
+        "int length) -> Tensor");
+  m.def("window_mismatches(Tensor ginter, int base_off, Tensor starts, "
+        "Tensor rpacked, Tensor rnplane, Tensor lengths) -> Tensor");
+}
+
+TORCH_LIBRARY_IMPL(urmap, CUDA, m) {
+  m.impl("seed_slots", &seed_slots);
+  m.impl("vote", &vote);
+  m.impl("banded_dp", &banded_dp);
+  m.impl("banded_semiglobal", &banded_semiglobal);
+  m.impl("tb_dops", &tb_dops);
+  m.impl("tb_bits", &tb_bits);
+  m.impl("row128_fetch", &row128_fetch);
+  m.impl("row128_window_fetch", &row128_window_fetch);
+  m.impl("rotate_narrow", &rotate_narrow);
+  m.impl("window_codes", &window_codes);
+  m.impl("window_mismatches", &window_mismatches);
+}

@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "urmap_kernels.h"
+
 namespace {
 
 __device__ __forceinline__ uint32_t rev2bit(uint32_t x) {

@@ -19,6 +19,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "urmap_kernels.h"
+
 namespace {
 
 constexpr int kLanes = 128;

@@ -318,14 +318,14 @@ def gather_window(table: torch.Tensor, starts: torch.Tensor, width: int, *,
 
 
 def _gather_aligned(ginter: torch.Tensor, starts: torch.Tensor,
-                    n_words: int, base_off: int):
+                    n_words: int, base_off: int, fetch=gather_window):
     """ONE window fetch from the interleaved table, funnel-aligned:
     (code words, N words) int32[N, n_words] for windows beginning at
     base ``starts[i]``."""
     s = starts.to(torch.int64)
     w0 = torch.div(s, BASES_PER_WORD, rounding_mode="floor") + base_off
     r = (s - (w0 - base_off) * BASES_PER_WORD).to(torch.int32)   # 0..15
-    both = gather_window(ginter, 2 * w0, 2 * (n_words + 1))
+    both = fetch(ginter, 2 * w0, 2 * (n_words + 1))
     both = both.reshape(both.shape[0], n_words + 1, 2)
     sh = (2 * r)[:, None].expand(-1, n_words)
 
@@ -335,14 +335,16 @@ def _gather_aligned(ginter: torch.Tensor, starts: torch.Tensor,
     return fun(both[:, :, 0]), fun(both[:, :, 1])
 
 
-def mismatch_counts(ginter: torch.Tensor, base_off: int,
-                    starts: torch.Tensor, rpacked: torch.Tensor,
-                    rnplane: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
-    """Bit-parallel ungapped mismatch count per row (gather + XOR +
-    popcount): int32[N] mismatches over the first ``lengths`` bases."""
+def mismatch_counts_plain(ginter: torch.Tensor, base_off: int,
+                          starts: torch.Tensor, rpacked: torch.Tensor,
+                          rnplane: torch.Tensor, lengths: torch.Tensor,
+                          fetch=gather_window) -> torch.Tensor:
+    """Plain version of kernel B5's ``window_mismatches`` entry (gather
+    + XOR + popcount). ``fetch`` is the window fetch in front:
+    ``gather_window`` by default; ``row128_window_fetch`` gives the
+    composition the entry equals on every lane, for any start."""
     N, nw = rpacked.shape
-    ga, na = _gather_aligned(ginter, starts, nw, base_off)
+    ga, na = _gather_aligned(ginter, starts, nw, base_off, fetch)
     x = ga ^ rpacked
     bits = ((x | srl(x, 1)) | na | rnplane) & EVEN
     base_idx = torch.arange(nw, dtype=torch.int32,
@@ -353,15 +355,41 @@ def mismatch_counts(ginter: torch.Tensor, base_off: int,
     return popcount(bits & tail).sum(dim=1, dtype=torch.int32)
 
 
-def gather_codes(ginter: torch.Tensor, base_off: int, starts: torch.Tensor,
-                 length: int) -> torch.Tensor:
-    """Byte-code window per row from the packed planes: uint8[N, length]
-    with genome N as code 4 (the DP window feed)."""
+def gather_codes_plain(ginter: torch.Tensor, base_off: int,
+                       starts: torch.Tensor, length: int,
+                       fetch=gather_window) -> torch.Tensor:
+    """Plain version of kernel B5's ``window_codes`` entry; ``fetch`` as
+    in ``mismatch_counts_plain``."""
     nw = -(-length // BASES_PER_WORD)
-    ga, na = _gather_aligned(ginter, starts, nw, base_off)
+    ga, na = _gather_aligned(ginter, starts, nw, base_off, fetch)
     sh = _lane_shifts(ga.device)[None, None, :]
     code = (ga[:, :, None] >> sh) & 3
     isn = (na[:, :, None] >> sh) & 1
     out = torch.where(isn == 1, 4, code)
     return out.reshape(ga.shape[0], nw * BASES_PER_WORD)[:, :length] \
         .to(torch.uint8).contiguous()
+
+
+def mismatch_counts(ginter: torch.Tensor, base_off: int,
+                    starts: torch.Tensor, rpacked: torch.Tensor,
+                    rnplane: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """Bit-parallel ungapped mismatch count per row: int32[N] mismatches
+    over the first ``lengths`` bases. On a CUDA table one launch of
+    kernel B5's fused entry, on a CPU table ``mismatch_counts_plain``
+    (kernels/lane_rotate.py)."""
+    from urmap_tpu_torch.kernels import lane_rotate
+
+    return lane_rotate.window_mismatches(ginter, base_off, starts, rpacked,
+                                         rnplane, lengths)
+
+
+def gather_codes(ginter: torch.Tensor, base_off: int, starts: torch.Tensor,
+                 length: int) -> torch.Tensor:
+    """Byte-code window per row from the packed planes: uint8[N, length]
+    with genome N as code 4 (the DP window feed). On a CUDA table one
+    launch of kernel B5's fused entry, on a CPU table
+    ``gather_codes_plain`` (kernels/lane_rotate.py)."""
+    from urmap_tpu_torch.kernels import lane_rotate
+
+    return lane_rotate.window_codes(ginter, base_off, starts, length)

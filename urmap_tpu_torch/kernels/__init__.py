@@ -14,7 +14,8 @@ from __future__ import annotations
 class Counter:
     """Launches of a kernel and calls of its plain version. ``widths``
     splits the launches by output width, for the wrappers that record
-    it (the window fetch: one kernel, the verify, DP and rescue shapes)."""
+    it (the window fetches: one kernel each, the verify, DP and rescue
+    shapes)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -35,17 +36,21 @@ def counters() -> list[Counter]:
     """Every kernel's counter, in main-path order. The last four have
     no caller on the mapping path: B1' in both modes (the byte-genome
     DP; the mapper aligns from the packed genome), the literal rotate of
-    B5 (the fetch entries never gather whole rows) and B7's bits mode."""
+    B5 (the fetch entries never gather whole rows) and B7's bits mode.
+    B5's plain window entry serves the classic layout's positions only:
+    no launch on the aligned and row128 layouts."""
     from urmap_tpu_torch.kernels import (banded_dp, lane_rotate, seed_slots,
                                          tb_dp, vote)
 
     return [seed_slots.counter, lane_rotate.fetch_counter, vote.counter,
-            lane_rotate.window_counter, banded_dp.counter,
-            banded_dp.clip_counter, tb_dp.counter,
-            banded_dp.semiglobal_counter, banded_dp.semiglobal_clip_counter,
-            lane_rotate.rotate_counter, tb_dp.bits_counter]
+            lane_rotate.mismatch_counter, lane_rotate.codes_counter,
+            banded_dp.counter, banded_dp.clip_counter, tb_dp.counter,
+            lane_rotate.window_counter, banded_dp.semiglobal_counter,
+            banded_dp.semiglobal_clip_counter, lane_rotate.rotate_counter,
+            tb_dp.bits_counter]
 
 
-# counters of kernels that the mapping path never launches
-OFF_PATH = ("banded_semiglobal", "banded_semiglobal_clip", "rotate_narrow",
-            "tb_bits")
+# counters of kernels that the aligned and row128 mapping paths never
+# launch
+OFF_PATH = ("row128_window_fetch", "banded_semiglobal",
+            "banded_semiglobal_clip", "rotate_narrow", "tb_bits")

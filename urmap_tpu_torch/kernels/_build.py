@@ -1,18 +1,22 @@
-"""Build and load the CUDA kernels: nvcc → one shared library → ctypes.
+"""Build and load the CUDA kernels: nvcc → one shared library →
+``torch.ops.urmap``.
 
-Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``), one nvcc per
-source side by side, and linked into one shared library with a plain C
-interface, at first use, into
+Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) with a plain C
+interface and no torch header (the prototypes stand once, in
+``csrc/urmap_kernels.h``); ``csrc/ops.cpp`` binds those entry points to
+PyTorch as operators of the ``urmap`` namespace (checks, outputs from
+``at::empty``, PyTorch's current stream) and is the one source compiled
+against torch's headers. One nvcc per source, all side by side, then one
+link against torch's libraries, at first use, into
 ``build/urmap_tpu_torch/`` at the repository root, keyed by a hash of
-the sources (a changed source builds anew; a stale library is never
-loaded). Pointers and the CUDA stream cross as ``c_void_p``. Every C
-entry point returns ``cudaGetLastError()``; ``check`` raises if it is
-not 0, so a refused launch is reported where it happened.
+the sources and the torch version (a changed source builds anew; a
+library built against another torch is never loaded).
+``torch.ops.load_library`` registers the operators; the wrappers in this
+package call ``torch.ops.urmap.<name>`` after ``load()``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import glob
 import hashlib
 import os
@@ -25,30 +29,19 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "urmap_tpu_torch")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+TORCH_LIBS = ("c10", "c10_cuda", "torch_cpu", "torch_cuda", "torch")
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-build_log = {"seconds": None, "ptxas": "", "path": None}
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-# entry point → argument types (pointers, ints, then the stream)
-_SIGNATURES = {
-    "urmap_seed_slots": [_P] * 6 + [_I] * 6 + [_P],
-    "urmap_vote": [_P, _P, _P] + [_I] * 3 + [_P],
-    "urmap_banded_dp": [_P] * 7 + [_I] * 9 + [_P],
-    "urmap_tb_dp": [_P] * 7 + [_I] * 8 + [_P],
-    "urmap_row128_fetch": [_P, _L, _I, _P, _P, _L, _I, _I, _P],
-    "urmap_rotate_narrow": [_P, _P, _P, _L, _I, _I, _P],
-    "urmap_banded_semiglobal": [_P, _L, _P, _P, _P] + [_P] * 4 + [_I] * 9
-    + [_P],
-}
+_loaded = False
+# seconds: the whole build; by_source: each compile's and the link's
+build_log = {"seconds": None, "by_source": {}, "ptxas": "", "path": None}
 
 
 def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
-                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+                  + glob.glob(os.path.join(CSRC, "*.cuh"))
+                  + glob.glob(os.path.join(CSRC, "*.h"))
+                  + glob.glob(os.path.join(CSRC, "*.cpp")))
 
 
 def _nvcc() -> str:
@@ -62,7 +55,9 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256()
+    import torch
+
+    h = hashlib.sha256(torch.__version__.encode())
     for src in _sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -70,76 +65,85 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"urmap_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _compile_cmd(nvcc: str, src: str, obj: str) -> list[str]:
+    cmd = [nvcc, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c", "-o", obj]
+    if src.endswith(".cu"):
+        return cmd + [ARCH, "-Xptxas", "-v", src]
+    # the binding: host code only, against torch's headers
+    import torch
+    from torch.utils import cpp_extension
+
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    return cmd + [f"-D_GLIBCXX_USE_CXX11_ABI={abi}"] \
+        + [f"-I{p}" for p in cpp_extension.include_paths()] + [src]
+
+
 def build() -> str:
-    """Compile the kernels if the library for these sources is missing;
-    returns its path. ``build_log`` keeps the compile time and the
-    ptxas register/spill report."""
+    """Compile the kernels and their binding if the library for these
+    sources is missing; returns its path. ``build_log`` keeps the times
+    and the ptxas register/spill report."""
     so = library_path()
     if os.path.exists(so):
         build_log["path"] = so
         return so
+    from torch.utils import cpp_extension
+
     os.makedirs(BUILD_DIR, exist_ok=True)
-    srcs = [s for s in _sources() if s.endswith(".cu")]
+    srcs = [s for s in _sources() if not s.endswith((".cuh", ".h"))]
     tmp = f"{so}.{os.getpid()}.tmp"
     nvcc = _nvcc()
     t0 = time.perf_counter()
     # one nvcc per source, all started together, then one link
     objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
-    procs = [subprocess.Popen(
-        [nvcc, ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
-         "-v", "-c", "-o", obj, src], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for src, obj in zip(srcs, objs)]
-    logs = [p.communicate()[1] for p in procs]
-    for src, p, log in zip(srcs, procs, logs):
+    procs = [subprocess.Popen(_compile_cmd(nvcc, src, obj),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for src, obj in zip(srcs, objs)]
+    done = {}
+
+    def wait(src, p):
+        log = p.communicate()[1]
+        done[src] = (log, time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=sp)
+               for sp in zip(srcs, procs)]
+    for th in waiters:
+        th.start()
+    for th in waiters:
+        th.join()
+    for src, p in zip(srcs, procs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
-                               f"({p.returncode}):\n{log}")
-    res = subprocess.run([nvcc, ARCH, "-shared", "-o", tmp] + objs,
-                         capture_output=True, text=True)
+                               f"({p.returncode}):\n{done[src][0]}")
+    t1 = time.perf_counter()
+    lib_dirs = cpp_extension.library_paths()
+    res = subprocess.run(
+        [nvcc, ARCH, "-shared", "-o", tmp] + objs
+        + [f"-L{d}" for d in lib_dirs] + [f"-l{name}" for name in TORCH_LIBS]
+        + [a for d in lib_dirs for a in ("-Xlinker", "-rpath", "-Xlinker", d)],
+        capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                            f"{res.stderr}")
     for obj in objs:
         os.remove(obj)
     os.replace(tmp, so)
-    build_log.update(seconds=time.perf_counter() - t0,
-                     ptxas="".join(logs), path=so)
+    by_source = {os.path.basename(s): done[s][1] for s in srcs}
+    by_source["link"] = time.perf_counter() - t1
+    build_log.update(seconds=time.perf_counter() - t0, by_source=by_source,
+                     ptxas="".join(done[s][0] for s in srcs
+                                   if s.endswith(".cu")), path=so)
     return so
 
 
-def lib() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            cdll = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(cdll, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = cdll
-        return _lib
-
-
-def check(err: int, name: str) -> None:
-    """Raise on a non-zero cudaError_t returned by an entry point."""
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-
-
-def stream_ptr(device) -> int:
+def load() -> None:
+    """Register ``torch.ops.urmap``: the kernel library, built on first
+    use."""
+    global _loaded
+    if _loaded:
+        return
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def require_cuda(t, name: str, dtype, ndim: int) -> None:
-    """Validate a kernel argument: CUDA, dtype, rank, contiguous."""
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got {t.dim()}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+    with _lock:
+        if not _loaded:
+            torch.ops.load_library(build())
+            _loaded = True

@@ -13,6 +13,9 @@ row is never reached and the initial row stands).
 with its window bytes read per cell from the genome (replaces
 urmap_tpu/kernels/banded_dp.py:banded_semiglobal_pallas); CPU tensors
 run map.dp.banded_semiglobal. Bit-equal for every length too.
+
+Kernels are compiled for band half-widths 8, 16 and 32; for another the
+operators raise ValueError.
 """
 
 from __future__ import annotations
@@ -29,7 +32,6 @@ counter = Counter("banded_dp")
 clip_counter = Counter("banded_dp_clip")
 semiglobal_counter = Counter("banded_semiglobal")
 semiglobal_clip_counter = Counter("banded_semiglobal_clip")
-HALF_WIDTHS = (8, 16, 32)  # band half-widths with a compiled kernel
 
 
 def banded_from_windows(windows: torch.Tensor, reads: torch.Tensor,
@@ -41,26 +43,12 @@ def banded_from_windows(windows: torch.Tensor, reads: torch.Tensor,
         cnt.plain_calls += 1
         return _plain(windows, reads, lengths, hw=hw, sc=sc,
                       clip_open=clip_open)
-    if hw not in HALF_WIDTHS:
-        raise ValueError(f"banded_dp: no kernel for hw={hw} "
-                         f"(compiled: {HALF_WIDTHS})")
-    n, L = reads.shape
-    _build.require_cuda(windows, "windows", torch.uint8, 2)
-    _build.require_cuda(reads, "reads", torch.uint8, 2)
-    _build.require_cuda(lengths, "lengths", torch.int32, 1)
-    if windows.shape != (n, L + 2 * hw) or lengths.shape[0] != n:
-        raise ValueError(f"banded_dp: windows {tuple(windows.shape)}, "
-                         f"reads {(n, L)}, lengths {tuple(lengths.shape)}")
-    dev = windows.device
-    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
-    err = _build.lib().urmap_banded_dp(
-        windows.data_ptr(), reads.data_ptr(), lengths.data_ptr(),
-        *(o.data_ptr() for o in outs), n, L, hw, sc.match, sc.mismatch,
-        sc.gap_open, sc.gap_extend, int(clip_open is not None),
-        int(clip_open or 0), _build.stream_ptr(dev))
-    _build.check(err, "urmap_banded_dp")
+    _build.load()
+    outs = torch.ops.urmap.banded_dp(windows, reads, lengths, hw, sc.match,
+                                     sc.mismatch, sc.gap_open, sc.gap_extend,
+                                     clip_open)
     cnt.launched()
-    return tuple(outs)
+    return outs
 
 
 def banded_semiglobal(genome: torch.Tensor, cand_starts: torch.Tensor,
@@ -72,28 +60,9 @@ def banded_semiglobal(genome: torch.Tensor, cand_starts: torch.Tensor,
         cnt.plain_calls += 1
         return _plain_semiglobal(genome, cand_starts, reads, lengths, hw=hw,
                                  sc=sc, clip_open=clip_open)
-    if hw not in HALF_WIDTHS:
-        raise ValueError(f"banded_semiglobal: no kernel for hw={hw} "
-                         f"(compiled: {HALF_WIDTHS})")
-    n, L = reads.shape
-    _build.require_cuda(genome, "genome", torch.uint8, 1)
-    _build.require_cuda(cand_starts, "cand_starts", torch.int32, 1)
-    _build.require_cuda(reads, "reads", torch.uint8, 2)
-    _build.require_cuda(lengths, "lengths", torch.int32, 1)
-    if cand_starts.shape[0] != n or lengths.shape[0] != n \
-            or genome.shape[0] < 1:
-        raise ValueError(f"banded_semiglobal: genome {tuple(genome.shape)}, "
-                         f"cand {tuple(cand_starts.shape)}, reads {(n, L)}, "
-                         f"lengths {tuple(lengths.shape)}")
-    dev = genome.device
-    scores, d0, ung, span = (torch.empty(n, dtype=torch.int32, device=dev)
-                             for _ in range(4))
-    err = _build.lib().urmap_banded_semiglobal(
-        genome.data_ptr(), genome.shape[0], cand_starts.data_ptr(),
-        reads.data_ptr(), lengths.data_ptr(), scores.data_ptr(),
-        d0.data_ptr(), ung.data_ptr(), span.data_ptr(), n, L, hw, sc.match,
-        sc.mismatch, sc.gap_open, sc.gap_extend, int(clip_open is not None),
-        int(clip_open or 0), _build.stream_ptr(dev))
-    _build.check(err, "urmap_banded_semiglobal")
+    _build.load()
+    outs = torch.ops.urmap.banded_semiglobal(
+        genome, cand_starts, reads, lengths, hw, sc.match, sc.mismatch,
+        sc.gap_open, sc.gap_extend, clip_open)
     cnt.launched()
-    return scores, d0, ung, span
+    return outs

@@ -2,7 +2,7 @@
 
 CUDA tensors launch ``csrc/lane_rotate.cu`` (replaces
 urmap_tpu/kernels/lane_rotate.py:rotate_narrow_pallas and the row
-gathers in front of it); CPU tensors run the plain versions. Three
+gathers in front of it); CPU tensors run the plain versions. Five
 entries, counted separately:
 
   row128_fetch         one table row per start, SENTINEL past the
@@ -10,6 +10,13 @@ entries, counted separately:
                        which at 128-word rows is _row128_fetch);
   row128_window_fetch  ``width`` words from a start clipped into the
                        table (plain: genome_pack.row128_window_fetch);
+  window_codes         the window entry fused with what follows it on
+                       the interleaved genome planes: fetch, funnel
+                       shift, unpack to byte codes (plain:
+                       genome_pack.gather_codes_plain);
+  window_mismatches    fetch, funnel shift, XOR with the read's words,
+                       N planes, tail mask, popcount, row sum (plain:
+                       genome_pack.mismatch_counts_plain);
   rotate_narrow        the TPU function itself, on rows already
                        gathered: rows[i, (j + off[i]) % W] (plain:
                        ``rotate_narrow_plain`` below). The mapping path
@@ -20,7 +27,8 @@ The kernel indexes the table flat, so a table is the [R, 128] view of
 the row128 layout or any 1-D table, of any length: no table on the card
 is read by plain indexing. Tables and outputs are int32 words (uint32
 bit patterns, ``_bits``); starts are int64, since a row128 table of a
-human genome passes 2^31 words.
+human genome passes 2^31 words (the two fused entries take base
+positions, int32 or int64, and widen them themselves).
 """
 
 from __future__ import annotations
@@ -32,28 +40,9 @@ from urmap_tpu_torch.kernels import _build
 
 fetch_counter = Counter("row128_fetch")
 window_counter = Counter("row128_window_fetch")
+codes_counter = Counter("window_codes")
+mismatch_counter = Counter("window_mismatches")
 rotate_counter = Counter("rotate_narrow")
-
-
-def _fetch(table: torch.Tensor, starts: torch.Tensor, width: int,
-           row_words: int, window: bool) -> torch.Tensor:
-    if table.dim() not in (1, 2) or (table.dim() == 2
-                                     and table.shape[1] != 128):
-        raise ValueError(f"table: expected 1-D or [R, 128], got "
-                         f"{tuple(table.shape)}")
-    _build.require_cuda(table, "table", torch.int32, table.dim())
-    _build.require_cuda(starts, "starts", torch.int64, 1)
-    M = table.numel()
-    if width < 1 or M < (width if window else row_words) or row_words < 1:
-        raise ValueError(f"table of {M} words: width {width}, rows of "
-                         f"{row_words} words")
-    n = starts.shape[0]
-    out = torch.empty((n, width), dtype=torch.int32, device=table.device)
-    err = _build.lib().urmap_row128_fetch(
-        table.data_ptr(), M, row_words, starts.data_ptr(), out.data_ptr(), n,
-        width, int(window), _build.stream_ptr(table.device))
-    _build.check(err, "urmap_row128_fetch")
-    return out
 
 
 def row128_fetch(positions: torch.Tensor, flat_starts: torch.Tensor,
@@ -63,16 +52,18 @@ def row128_fetch(positions: torch.Tensor, flat_starts: torch.Tensor,
     words: [R, 128] (row128 layout) or 1-D (aligned layout, of any
     length); SENTINEL past the row's end. See
     map.seed._aligned_rows_fetch."""
-    if positions.dim() == 2 and row_words != positions.shape[1]:
-        raise ValueError(f"table: rows of {positions.shape[1]} words, "
-                         f"row_words {row_words}")
     if not positions.is_cuda:
         from urmap_tpu_torch.map.seed import _aligned_rows_fetch
 
+        if positions.dim() == 2 and row_words != positions.shape[1]:
+            raise ValueError(f"table: rows of {positions.shape[1]} words, "
+                             f"row_words {row_words}")
         fetch_counter.plain_calls += 1
         return _aligned_rows_fetch(positions.reshape(-1), flat_starts, width,
                                    row_words)
-    out = _fetch(positions, flat_starts, width, row_words, window=False)
+    _build.load()
+    out = torch.ops.urmap.row128_fetch(positions, flat_starts, width,
+                                       row_words)
     fetch_counter.launched()
     return out
 
@@ -87,8 +78,45 @@ def row128_window_fetch(table: torch.Tensor, starts: torch.Tensor,
 
         window_counter.plain_calls += 1
         return plain(table, starts, width)
-    out = _fetch(table, starts, width, 1, window=True)
+    _build.load()
+    out = torch.ops.urmap.row128_window_fetch(table, starts, width)
     window_counter.launched(width)
+    return out
+
+
+def window_codes(ginter: torch.Tensor, base_off: int, starts: torch.Tensor,
+                 length: int) -> torch.Tensor:
+    """→ uint8[N, length]: the byte codes (genome N = 4) of the windows
+    that begin at base ``starts[i]`` of the interleaved genome planes;
+    see genome_pack.gather_codes."""
+    if not ginter.is_cuda:
+        from urmap_tpu_torch.genome_pack import gather_codes_plain
+
+        codes_counter.plain_calls += 1
+        return gather_codes_plain(ginter, base_off, starts, length)
+    _build.load()
+    out = torch.ops.urmap.window_codes(ginter, base_off, starts, length)
+    codes_counter.launched(length)
+    return out
+
+
+def window_mismatches(ginter: torch.Tensor, base_off: int,
+                      starts: torch.Tensor, rpacked: torch.Tensor,
+                      rnplane: torch.Tensor,
+                      lengths: torch.Tensor) -> torch.Tensor:
+    """→ int32[N]: mismatches of each read's words against the window at
+    base ``starts[i]`` over the first ``lengths[i]`` bases; see
+    genome_pack.mismatch_counts."""
+    if not ginter.is_cuda:
+        from urmap_tpu_torch.genome_pack import mismatch_counts_plain
+
+        mismatch_counter.plain_calls += 1
+        return mismatch_counts_plain(ginter, base_off, starts, rpacked,
+                                     rnplane, lengths)
+    _build.load()
+    out = torch.ops.urmap.window_mismatches(ginter, base_off, starts, rpacked,
+                                            rnplane, lengths)
+    mismatch_counter.launched()
     return out
 
 
@@ -108,16 +136,7 @@ def rotate_narrow(rows: torch.Tensor, off: torch.Tensor,
     if not rows.is_cuda:
         rotate_counter.plain_calls += 1
         return rotate_narrow_plain(rows, off, width)
-    _build.require_cuda(rows, "rows", torch.int32, 2)
-    _build.require_cuda(off, "off", torch.int32, 1)
-    n, W = rows.shape
-    if off.shape[0] != n or not 1 <= width <= W:
-        raise ValueError(f"rotate_narrow: rows {tuple(rows.shape)}, off "
-                         f"{tuple(off.shape)}, width {width}")
-    out = torch.empty((n, width), dtype=torch.int32, device=rows.device)
-    err = _build.lib().urmap_rotate_narrow(
-        rows.data_ptr(), off.data_ptr(), out.data_ptr(), n, W, width,
-        _build.stream_ptr(rows.device))
-    _build.check(err, "urmap_rotate_narrow")
+    _build.load()
+    out = torch.ops.urmap.rotate_narrow(rows, off, width)
     rotate_counter.launched()
     return out

@@ -26,25 +26,8 @@ def seed_slots_words(rpacked: torch.Tensor, rnplane: torch.Tensor,
         counter.plain_calls += 1
         return extract_seed_slots_words(rpacked, rnplane, lengths, L, k=k,
                                         q=q, slot_bits=slot_bits)
-    n, nw = rpacked.shape
-    if L < k or not 1 <= k <= 32 or L > 16 * nw or not 1 <= slot_bits <= 32:
-        raise ValueError(f"seed_slots: unsupported L={L} k={k} nw={nw} "
-                         f"slot_bits={slot_bits}")
-    for t, name in ((rpacked, "rpacked"), (rnplane, "rnplane")):
-        _build.require_cuda(t, name, torch.int32, 2)
-        if t.shape != (n, nw):
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != {(n, nw)}")
-    _build.require_cuda(lengths, "lengths", torch.int32, 1)
-    if lengths.shape[0] != n:
-        raise ValueError("lengths: one per read")
-    dev = rpacked.device
-    slots = torch.empty((n, q), dtype=torch.int32, device=dev)
-    offs = torch.empty((n, q), dtype=torch.int32, device=dev)
-    valid = torch.empty((n, q), dtype=torch.bool, device=dev)
-    err = _build.lib().urmap_seed_slots(
-        rpacked.data_ptr(), rnplane.data_ptr(), lengths.data_ptr(),
-        slots.data_ptr(), offs.data_ptr(), valid.data_ptr(), n, nw, L, k, q,
-        slot_bits, _build.stream_ptr(dev))
-    _build.check(err, "urmap_seed_slots")
+    _build.load()
+    slots, offs, valid = torch.ops.urmap.seed_slots(rpacked, rnplane, lengths,
+                                                    L, k, q, slot_bits)
     counter.launched()
     return slots, offs, valid

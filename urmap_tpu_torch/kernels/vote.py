@@ -2,7 +2,8 @@
 
 CUDA tensors launch ``csrc/vote.cu`` (replaces
 urmap_tpu/kernels/vote.py:vote_pallas); CPU tensors run the plain
-version, map.seed.vote_top_candidates. The two are bit-equal.
+version, map.seed.vote_top_candidates. The two are bit-equal. The kernel
+takes at most 128 candidates per read (the operator refuses more).
 """
 
 from __future__ import annotations
@@ -14,7 +15,6 @@ from urmap_tpu_torch.kernels import _build
 from urmap_tpu_torch.map.seed import vote_top_candidates
 
 counter = Counter("vote")
-MAX_M = 128
 
 
 def vote(cand: torch.Tensor, *, v: int):
@@ -22,15 +22,7 @@ def vote(cand: torch.Tensor, *, v: int):
     if not cand.is_cuda:
         counter.plain_calls += 1
         return vote_top_candidates(cand, v=v)
-    _build.require_cuda(cand, "cand", torch.int32, 2)
-    n, m = cand.shape
-    if not (1 <= m <= MAX_M and 1 <= v <= m):
-        raise ValueError(f"vote: unsupported M={m}, V={v} (M <= {MAX_M})")
-    top = torch.empty((n, v), dtype=torch.int32, device=cand.device)
-    votes = torch.empty((n, v), dtype=torch.int32, device=cand.device)
-    err = _build.lib().urmap_vote(cand.data_ptr(), top.data_ptr(),
-                                  votes.data_ptr(), n, m, v,
-                                  _build.stream_ptr(cand.device))
-    _build.check(err, "urmap_vote")
+    _build.load()
+    top, votes = torch.ops.urmap.vote(cand, v)
     counter.launched()
     return top, votes

@@ -566,7 +566,9 @@ class Mapper:
 
     The surface of urmap_tpu.map.Mapper — prepack / start_batch /
     finish_batch / map_codes — so utils.stream.run_stream drives it
-    unchanged. ``device`` is required ("cuda", "cuda:1", "cpu"): on
+    unchanged. ``device`` ("cuda" by default, "cuda:1", "cpu"): the
+    Mapper runs on the card unless the caller asks for the CPU, and
+    raises without a card (``require_device`` never falls back). On
     CUDA the seed, table-fetch, vote, DP and traceback stages launch
     their kernels, on the CPU they run the plain versions. The table
     layout (classic, aligned or row128, with or without packed
@@ -575,7 +577,7 @@ class Mapper:
     load_prepared, in place of preparing them from ``index`` here."""
 
     def __init__(self, index, mcfg: MapConfig | None = None,
-                 sc: ScoreConfig | None = None, *, device,
+                 sc: ScoreConfig | None = None, *, device="cuda",
                  prepared: tuple[dict, dict] | None = None):
         from urmap_tpu_torch.index.store import (load_prepared,
                                                  prepare_tables,
