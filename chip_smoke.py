@@ -380,20 +380,22 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
             lambda: seedmod.extract_seed_slots_words(rp, rn, lens, L_MAX,
                                                      k=K, q=Q, slot_bits=27),
             (rp, rn, lens), n_reads * Q * 40),
-        # per read: a 28-stage bitonic network of 64 compare-exchanges
-        # (min and max: 2; partners and directions are constants of an
-        # unrolled network), a 7-step binary search for each of 128 run
-        # ends (~3 each), V warp-argmax rounds over 32 lanes (~20 each)
+        # per read, the least the function needs whatever computes it:
+        # the 28-stage bitonic network's 64 compare-exchanges a stage
+        # (min and max: 2), a head test per value (1 x 128) and V maxima
+        # over 128 keys in three-input maxes (64 each)
         "vote": (lambda: vote.vote(cand, v=V),
                  lambda: seedmod.vote_top_candidates(cand, v=V), (cand,),
-                 n_reads * (28 * 64 * 2 + 128 * 7 * 3 + V * 32 * 20)),
+                 n_reads * (28 * 64 * 2 + 128 + V * 64)),
     }
     # per band cell and read row: E (add+max), the substitution
     # (compare, select), T (add+max), the running max (add+max), H over
     # F (add+max): 6 (and one plain add), plus 3 per row; the rows stop
     # at the read's length. Clip mode adds the fresh start (add+max) and
     # its share of the row maximum in three-input maxes (1/2): 7.5.
-    for name, key, clip, per_cell in (("banded_dp", "dp", None, 6),
+    # Plain mode's values fit 16 bits at these shapes, and the same
+    # instructions take two cells at once in their s16x2 forms: 3.
+    for name, key, clip, per_cell in (("banded_dp", "dp", None, 3),
                                       ("banded_dp_clip", "clip",
                                        sc.clip_open, 7.5)):
         w, r, ln = (put(a) for a in x[key])
@@ -412,7 +414,7 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     sg_rows = int(sg_lens.clamp(0, L_MAX).sum())
     sg_n = sg_cand.shape[0]
     sg_bytes = sg_n * ((L_MAX + 2 * HW) + L_MAX + 4 + 4 + 16)
-    for name, clip, per_cell in (("banded_semiglobal", None, 6),
+    for name, clip, per_cell in (("banded_semiglobal", None, 3),
                                  ("banded_semiglobal_clip", sc.clip_open,
                                   7.5)):
         cases[name] = (
@@ -602,6 +604,14 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
         if name.startswith("banded_"):
             s = want[0]
             rec["negative_scores"] = int((s < 0).sum())
+        if name.startswith("banded_dp"):
+            # the same call with no rows to run: the host's enqueue, the
+            # staging, the bit planes and the outputs
+            no_rows = (inputs[0], inputs[1], torch.zeros_like(inputs[2]),
+                       sc.clip_open if name.endswith("_clip") else None)
+            rec["ms_no_rows"] = time_ms(
+                lambda a=no_rows: banded_dp.banded_from_windows(
+                    *a[:3], hw=HW, sc=sc, clip_open=a[3]), dev)
         if name.startswith("banded_semiglobal"):
             rec["gapped"] = int((want[2] < want[0]).sum())
         if name.startswith("tb_dops"):
@@ -1436,7 +1446,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.load()
     ptxas = [ln for ln in _build.build_log["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "seconds_by_source": _build.build_log["by_source"],
           "library": os.path.relpath(_build.build_log["path"], ROOT),

@@ -5,6 +5,8 @@ card: ``python -m pytest tests -m cuda``. Every output is an integer,
 so every comparison is exact.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -380,6 +382,152 @@ def test_rotate_narrow_kernel_matches_plain(cuda_device, W, width):
     torch.cuda.synchronize()
     assert lane_rotate.rotate_counter.launches == 1
     assert torch.equal(got, lane_rotate.rotate_narrow_plain(rows, off, width))
+
+
+@functools.lru_cache(maxsize=None)
+def dp_edge_inputs(n, L, hw, seed=5):
+    """numpy (windows, reads, lengths) for B1: reads drawn from their
+    windows at every band offset, with deletions and insertions, random
+    adapter tails, unrelated and all-N reads, 1% read-N, genome N, and
+    the lengths that pin the DP's edges (0, 1, below the seed length,
+    L - 1, L, L + 5 and -3) among the rest (vectorised: N up to 32,768)."""
+    rng = np.random.default_rng(seed)
+    wlen = L + 2 * hw
+    g = rng.integers(0, 4, size=(n, wlen + 16)).astype(np.uint8)
+    g[rng.random(g.shape) < 0.002] = 4
+    win = g[:, :wlen].copy()
+    col = np.arange(L)[None, :]
+    start = hw + rng.integers(-hw, hw + 1, size=n)[:, None]
+    o = rng.integers(4, max(L - 8, 5), size=n)[:, None]
+    d = rng.integers(1, max(min(hw, 9), 2), size=n)[:, None]
+    kind = np.arange(n)[:, None] % 8
+    src = start + col
+    src = np.where((kind == 1) & (col >= o), src + d, src)      # deletion
+    src = np.where((kind == 2) & (col >= o), src - d, src)      # insertion
+    reads = np.take_along_axis(g, np.clip(src, 0, wlen + 15), 1)
+    junk = rng.integers(0, 4, size=(n, L)).astype(np.uint8)
+    ins = (kind == 2) & (col >= o) & (col < o + d)
+    reads = np.where(ins | (kind == 3), junk, reads)            # unrelated
+    tail = rng.integers(L // 5, L // 3 + 1, size=n)[:, None]
+    reads = np.where((kind == 4) & (col >= L - tail), junk, reads)
+    reads = np.where(reads == 4, 5, reads)
+    reads[rng.random(reads.shape) < 0.01] = 5
+    reads[kind[:, 0] == 6] = 5                                   # all-N
+    lens = np.full(n, L, np.int32)
+    lens[1::3] = L - 10
+    lens[::7] = np.resize([0, 1, 5, L - 1, L, L + 5, -3], len(lens[::7]))
+    reads[col >= lens[:, None]] = 5
+    return win, reads.astype(np.uint8), lens
+
+
+@functools.lru_cache(maxsize=None)
+def _dp_plain(n, L, hw, clip):
+    from urmap_tpu_torch.map import dp
+
+    args = tuple(torch.from_numpy(a).cuda() for a in dp_edge_inputs(n, L, hw))
+    sc = ScoreConfig()
+    want = dp.banded_from_windows(*args, hw=hw, sc=sc,
+                                  clip_open=sc.clip_open if clip else None)
+    return args, want
+
+
+@pytest.mark.parametrize("n", [1, 33, 8192, 32768])
+@pytest.mark.parametrize("hw,L", [(16, 160), (8, 101), (32, 96), (16, 400)])
+@pytest.mark.parametrize("clip", [False, True])
+def test_banded_dp_kernel_matches_plain(cuda_device, clip, hw, L, n):
+    """B1 in both modes equal to the plain version on every output. The
+    kernel takes 4 lanes per candidate below 32,768 candidates and 2 from
+    there on, so both compiled lane counts run. Plain mode runs in 16-bit
+    pairs up to reads of ~300 codes and in 32 bits beyond: L = 400 takes
+    the 32-bit body."""
+    from urmap_tpu_torch.kernels import banded_dp
+
+    args, want = _dp_plain(n, L, hw, clip)
+    sc = ScoreConfig()
+    cnt = banded_dp.clip_counter if clip else banded_dp.counter
+    cnt.reset()
+    got = banded_dp.banded_from_windows(
+        *args, hw=hw, sc=sc, clip_open=sc.clip_open if clip else None)
+    torch.cuda.synchronize()
+    assert cnt.launches == 1 and cnt.plain_calls == 0
+    for name, g, w in zip(("score", "d0", "d1", "ungapped"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("n", [33, 32768])
+@pytest.mark.parametrize("hw,L", [(16, 160), (32, 96)])
+@pytest.mark.parametrize("clip", [False, True])
+def test_banded_dp_kernel_takes_any_byte(cuda_device, clip, hw, L, n):
+    """B1 and B1' on bytes that are no codes: every other candidate's
+    window and read bytes go through one permutation of 0-255, so most
+    lie above 5. A window byte matches a read byte where the two are
+    equal, as in the plain versions."""
+    from urmap_tpu_torch.kernels import banded_dp
+    from urmap_tpu_torch.map import dp
+
+    perm = np.random.default_rng(3).permutation(256).astype(np.uint8)
+    win, reads, lens = dp_edge_inputs(n, L, hw)
+    odd = (np.arange(n) % 2 == 1)[:, None]
+    win = np.where(odd, perm[win], win)
+    reads = np.where(odd, perm[reads], reads)
+    sc = ScoreConfig()
+    co = sc.clip_open if clip else None
+    args = tuple(torch.from_numpy(a).to(cuda_device)
+                 for a in (win, reads, lens))
+    got = banded_dp.banded_from_windows(*args, hw=hw, sc=sc, clip_open=co)
+    want = dp.banded_from_windows(*args, hw=hw, sc=sc, clip_open=co)
+    for name, g, w in zip(("score", "d0", "d1", "ungapped"), got, want):
+        assert torch.equal(g, w), name
+    # B1': candidate t's window is genome[t * wlen, (t + 1) * wlen)
+    wlen = L + 2 * hw
+    genome = torch.from_numpy(win.reshape(-1)).to(cuda_device)
+    cand = torch.arange(n, dtype=torch.int32, device=cuda_device) * wlen + hw
+    sg = (genome, cand) + args[1:]
+    got = banded_dp.banded_semiglobal(*sg, hw=hw, sc=sc, clip_open=co)
+    want = dp.banded_semiglobal(*sg, hw=hw, sc=sc, clip_open=co)
+    for name, g, w in zip(("score", "d0", "ungapped", "span"), got, want):
+        assert torch.equal(g, w), name
+
+
+def vote_edge_inputs(n, m, seed=9):
+    """int32[n, m] candidate starts in biased coordinates: runs of equal
+    starts, SENTINEL lanes, all-SENTINEL rows, one-run rows, rows of
+    equal runs, and starts from both ends of the int32 range."""
+    from urmap_tpu_torch.map.seed import POS_BIAS, SENTINEL
+
+    rng = np.random.default_rng(seed)
+    base = (-POS_BIAS + rng.integers(0, 1 << 26, size=(n, 6))).astype(np.int64)
+    cand = base[np.arange(n)[:, None], rng.integers(0, 6, size=(n, m))]
+    cand = cand + rng.integers(0, 2, size=cand.shape)
+    cand[:, :1] = rng.integers(-(2**31), SENTINEL, size=(n, 1))
+    cand = cand.astype(np.int32)
+    cand[rng.random(cand.shape) < 0.4] = SENTINEL
+    cand[::11] = SENTINEL                                   # all invalid
+    cand[1::11] = -POS_BIAS + 77                            # one run
+    for i in range(2, n, 11):                               # equal runs
+        k = max(m // 3, 1)
+        vals = np.sort(rng.integers(0, 1000, size=3)) - POS_BIAS
+        cand[i] = np.repeat(vals, k + 1)[:m]
+        rng.shuffle(cand[i])
+    return cand
+
+
+@pytest.mark.parametrize("m", [2, 16, 64, 128])
+@pytest.mark.parametrize("v", [1, 8, "m"])
+def test_vote_kernel_edges_match_plain(cuda_device, m, v):
+    """B4 at every M and V <= M, N not a multiple of the block."""
+    from urmap_tpu_torch.kernels import vote
+    from urmap_tpu_torch.map.seed import vote_top_candidates
+
+    v = m if v == "m" else min(v, m)
+    cand = torch.from_numpy(vote_edge_inputs(1027, m)).to(cuda_device)
+    vote.counter.reset()
+    got = vote.vote(cand, v=v)
+    torch.cuda.synchronize()
+    assert vote.counter.launches == 1 and vote.counter.plain_calls == 0
+    want = vote_top_candidates(cand, v=v)
+    for name, g, w in zip(("top", "votes"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
 
 
 @pytest.mark.parametrize("clip", [False, True])

@@ -8,13 +8,27 @@
 // the order of jax.lax.top_k in the reference. A pick with 0 votes
 // outputs (SENTINEL, 0).
 //
-// What bounds it on the card: shared-memory traffic and warp syncs of
-// the 28-stage bitonic network (64 compare-exchanges per stage) for
-// 2B = 32,768 reads at the slice's shapes; each read's 512 input bytes
-// are read once. Design: one warp per read, the 128 values in shared
-// memory (each lane owns 2 of the 64 pairs per stage), run lengths by a
-// binary search for each head's run end, then V rounds of a warp argmax
-// (__shfl_xor_sync) that prefers the lower index on equal votes.
+// What bounds it on the card: integer ALU work. The least the function
+// needs per read is the 28-stage bitonic network's 28 x 64
+// compare-exchanges (a min and a max each), a head test per value and V
+// maxima over 128 keys; each read's 512 input bytes are read once. 2B =
+// 32,768 reads at the slice's shapes, so parallelism is plentiful and
+// instructions and their latency set the pace. Design: one warp per
+// read with the 128 values in registers, four a lane, value k * 32 +
+// lane in x[k] (no shared memory, no index arithmetic):
+//   - the network is unrolled, every partner and direction a constant
+//     of the stage: strides 64 and 32 exchange between a lane's own
+//     registers (a min and a max), strides 16 .. 1 take the partner by
+//     __shfl_xor_sync and keep the min or the max (a compare whose
+//     predicate folds the direction, and a select);
+//   - run heads come from one neighbour shuffle per register and four
+//     __ballot_sync, which make a 128-bit head mask; a head's run ends
+//     at the next set bit (__ffs on its word, else the first set bit of
+//     the words above, which every lane computes once);
+//   - each top-V round is one __reduce_max_sync over keys votes * 128 +
+//     (127 - index): the larger key is the lower index on equal votes,
+//     the reference's order; the lane that owns the pick writes it and
+//     clears its key.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -28,81 +42,100 @@ constexpr int kWarps = 4;  // reads per block
 constexpr int32_t kSentinel = 0x7FFFFFF0;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__global__ void vote_kernel(const int32_t* __restrict__ cand,
-                            int32_t* __restrict__ top,
-                            int32_t* __restrict__ votes, int n, int m,
-                            int v) {
-  __shared__ int32_t sx[kWarps][kLanes];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + warp;
-  if (row >= n) return;  // the whole warp leaves together
-  int32_t* x = sx[warp];
-  const int32_t* c = cand + row * m;
-  for (int i = lane; i < kLanes; i += 32) x[i] = i < m ? c[i] : kSentinel;
-  __syncwarp();
+// First set bit of a 32-bit word at index base, or `none` if it is 0.
+__device__ __forceinline__ int first_bit(unsigned w, int base, int none) {
+  return w ? base + __ffs(w) - 1 : none;
+}
 
-  // bitonic sort, ascending
+__global__ void __launch_bounds__(kWarps * 32)
+    vote_kernel(const int32_t* __restrict__ cand, int32_t* __restrict__ top,
+                int32_t* __restrict__ votes, int n, int m, int v) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;  // the whole warp leaves together
+  const int32_t* c = cand + row * m;
+  int x[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int e = k * 32 + lane;
+    x[k] = e < m ? c[e] : kSentinel;
+  }
+
+  // bitonic sort, ascending: element e meets e ^ stride; the lower of
+  // the two keeps the min where (e & size) == 0, else the max
+#pragma unroll
   for (int size = 2; size <= kLanes; size <<= 1) {
+#pragma unroll
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = lane; t < kLanes / 2; t += 32) {
-        const int i = 2 * stride * (t / stride) + (t % stride);
-        const int j = i + stride;
-        const bool asc = (i & size) == 0;
-        const int32_t a = x[i], b = x[j];
-        if ((a > b) == asc) {
-          x[i] = b;
-          x[j] = a;
+      if (stride >= 32) {
+        const int s = stride >> 5;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (k & s) continue;
+          const bool asc = ((k * 32) & size) == 0;
+          const int lo = min(x[k], x[k | s]), hi = max(x[k], x[k | s]);
+          x[k] = asc ? lo : hi;
+          x[k | s] = asc ? hi : lo;
+        }
+      } else {
+        const bool upper = (lane & stride) != 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool desc = size < 32 ? (lane & size) != 0
+                                      : ((k * 32) & size) != 0;
+          const bool take_min = upper == desc;
+          const int y = __shfl_xor_sync(kFull, x[k], stride);
+          x[k] = (y < x[k]) == take_min ? y : x[k];
         }
       }
-      __syncwarp();
     }
   }
 
-  // run-length votes at run heads: run end = upper bound of the value
+  // run heads: e == 0 or x[e - 1] != x[e]; the mask holds every head,
+  // SENTINEL's too, since a run ends where the next value starts
+  unsigned hm[4];
+  int prev_last = 0;  // x[k - 1] of lane 31
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int up = __shfl_up_sync(kFull, x[k], 1);
+    const bool head = lane == 0 ? (k == 0 || prev_last != x[k]) : up != x[k];
+    hm[k] = __ballot_sync(kFull, head);
+    prev_last = __shfl_sync(kFull, x[k], 31);
+  }
+  // the first head at or above word k + 1 (lane-uniform)
+  int above[4];
+  above[3] = kLanes;
+#pragma unroll
+  for (int k = 2; k >= 0; --k) above[k] = first_bit(hm[k + 1], 32 * (k + 1),
+                                                    above[k + 1]);
   int key[4];
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int i = lane + 32 * t;
-    const int32_t val = x[i];
-    const bool head = i == 0 || x[i - 1] != val;
-    key[t] = 0;
-    if (head && val != kSentinel) {
-      int lo = i + 1, hi = kLanes;  // first index with x > val
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (x[mid] > val) hi = mid; else lo = mid + 1;
-      }
-      key[t] = lo - i;
-    }
+  for (int k = 0; k < 4; ++k) {
+    const int e = k * 32 + lane;
+    // heads strictly above e in word k (lane 31: none)
+    const unsigned later = lane == 31 ? 0u : hm[k] & (~0u << (lane + 1));
+    const int next = first_bit(later, 32 * k, above[k]);
+    const bool head = (hm[k] >> lane) & 1u;
+    const int vts = head && x[k] != kSentinel ? next - e : 0;
+    key[k] = vts * kLanes + (kLanes - 1 - e);
   }
 
-  // top-V: max votes, ties to the lowest index
+  // top-V: the largest key, then its owner clears it
   for (int r = 0; r < v; ++r) {
-    int best = -1, bi = kLanes;
+    const int best = __reduce_max_sync(
+        kFull, max(max(key[0], key[1]), max(key[2], key[3])));
+    const int e = kLanes - 1 - (best & (kLanes - 1));
+    const int vts = best >> 7;
+    if (lane == (e & 31)) {
+      const int k = e >> 5;
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      if (key[t] > best) {
-        best = key[t];
-        bi = lane + 32 * t;
+      for (int j = 0; j < 4; ++j) {
+        if (j == k) {
+          top[row * v + r] = vts > 0 ? x[j] : kSentinel;
+          votes[row * v + r] = vts;
+          key[j] = -1;
+        }
       }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const int ob = __shfl_xor_sync(kFull, best, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (ob > best || (ob == best && oi < bi)) {
-        best = ob;
-        bi = oi;
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      if (lane + 32 * t == bi) key[t] = -1;
-    }
-    if (lane == 0) {
-      top[row * v + r] = best > 0 ? x[bi] : kSentinel;
-      votes[row * v + r] = best > 0 ? best : 0;
     }
   }
 }
