@@ -11,7 +11,7 @@ Phases, each printing one JSON line:
   2. build   — nvcc builds csrc/*.cu for sm_90a and the operator
                binding csrc/ops.cpp against torch's headers, one per
                source side by side; torch.ops.load_library loads it;
-  3. kernels — B3 seed slots, B4 vote, B1 banded DP (plain and clip
+  3. kernels — B4 vote, B1 banded DP (plain and clip
                mode), B5 dense-row fetch (row entry at W = 128, window
                entry at W = 256 and 384, the literal rotate, and the
                fused entries window_codes at 192 and 1,200 bases and
@@ -20,9 +20,15 @@ Phases, each printing one JSON line:
                in its guard words and past its end), B1' the
                byte-genome DP (plain and clip mode), B6 traceback
                records (N = 2,048, and 128 and 16,384) and B7 traceback
-               bits at the paths' shapes, kernel vs plain version on the card,
-               exact equality (integer outputs, tolerance 0), median
-               times of synchronised runs beside each kernel's bound;
+               bits at the paths' shapes; the seed front (2B = 32,768
+               read-strands, Q = 8, plain and packed offsets over 2^27
+               slots); the shapes past the default: B1 (both modes) and
+               B1' at band half-widths 12, 24 and 40, B6 and B7 at 12, 24
+               and 31, B6 and B1 on read blocks of 700 and 2,000, B4 at
+               256 and 2,048 candidates a read; kernel vs plain version
+               on the card, exact equality (integer outputs, tolerance
+               0), median times of synchronised runs beside each
+               kernel's bound;
   4. slice   — a 46,709,983-base synthetic genome (GRCh38 chr21's
                length, with N runs; 1% SNPs, 5% indels, 1% adapter
                tails, 1% junk) → FASTA → index (port host build) →
@@ -59,7 +65,14 @@ Phases, each printing one JSON line:
                2048 pairs;
   8. semiglobal — B1' on real work: the first 4096 winners of phase 6
                re-aligned over the byte genome at their POS, kernel
-               against plain version on the card, exact.
+               against plain version on the card, exact;
+  9. shapes  — a Mapper over the aligned tables at band_halfwidth 24 and
+               max_read_len 704 with the device traceback on: 16,384
+               planted reads of 250-700 bases (1% SNPs, 5% with a 1-24 bp
+               indel, 1% with a long random tail, 1% junk), batch 4,096;
+               the slice's checks (tb_dops = batches, no plain call), and
+               the first 1,024 reads on a CPU Mapper: MapResult, tb dict
+               and SAM bytes equal to the card's.
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and
 the final {"ok": true, ...} line. Any failed check exits non-zero.
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -87,6 +100,9 @@ TB_C = 2048                      # traceback lanes per batch (tb_cols)
 RESCUE_W = 1200                  # MapConfig.rescue_window
 N_CPU = 4096                     # reads mapped again on the CPU
 N_CPU_PAIRS = 2048
+# the shapes phase: band half-width 24, reads of 250-700 bases
+SHAPES_HW, SHAPES_L, SHAPES_BATCH = 24, 704, 4096
+N_SHAPES, N_SHAPES_CPU = 16384, 1024
 # The card's peaks for the kernels' bounds (NVIDIA's H100 SXM data
 # sheet): 3.35 TB/s of HBM; 67 TFLOP/s of float32 outside the tensor
 # cores = 128 lanes per SM at 2 flops per FMA, and an SM has 64 lanes
@@ -333,6 +349,212 @@ def nbytes(tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
+def shape_dp_inputs(rng, n: int, L: int, hw: int):
+    """numpy (windows, reads, lengths) for B1, B6 and B7 at any band
+    half-width and read block: reads drawn from their windows at a band
+    offset, with a deletion or an insertion of up to min(hw, 24) bases,
+    unrelated and all-N reads, 1% read-N, genome N, and the lengths that
+    pin the edges (0, 1, L - 1, L) among L and L - 10 (vectorised)."""
+    wlen = L + 2 * hw
+    g = rng.integers(0, 4, size=(n, wlen + 32)).astype(np.uint8)
+    g[rng.random(g.shape) < 0.002] = 4
+    win = g[:, :wlen].copy()
+    col = np.arange(L)[None, :]
+    start = hw + rng.integers(-(hw // 2), hw // 2 + 1, size=n)[:, None]
+    o = rng.integers(4, max(L - 8, 5), size=n)[:, None]
+    d = rng.integers(1, max(min(hw, 24), 1) + 1, size=n)[:, None]
+    kind = np.arange(n)[:, None] % 8
+    src = start + col
+    src = np.where((kind == 1) & (col >= o), src + d, src)      # deletion
+    src = np.where((kind == 2) & (col >= o), src - d, src)      # insertion
+    reads = np.take_along_axis(g, np.clip(src, 0, wlen + 31), 1)
+    junk = rng.integers(0, 4, size=(n, L)).astype(np.uint8)
+    ins = (kind == 2) & (col >= o) & (col < o + d)
+    reads = np.where(ins | (kind == 3), junk, reads)            # unrelated
+    reads = np.where(reads == 4, 5, reads)
+    reads[rng.random(reads.shape) < 0.01] = 5
+    reads[kind[:, 0] == 6] = 5                                   # all-N
+    lens = np.full(n, L, np.int32)
+    lens[1::3] = L - 10
+    lens[::61] = np.resize([0, 1, L - 1, L], len(lens[::61]))
+    reads[col >= lens[:, None]] = 5
+    return win, reads.astype(np.uint8), lens
+
+
+def vote_inputs(rng, n: int, m: int):
+    """int32[n, m] biased candidate starts with vote runs, as phase 3's
+    B4 case at 128, with all-invalid, one-run and equal-run rows."""
+    from urmap_tpu_torch.map.seed import SENTINEL, POS_BIAS
+
+    base = (-POS_BIAS + rng.integers(0, CHR21_LEN, size=(n, 8))
+            ).astype(np.int64)
+    cand = base[np.arange(n)[:, None], rng.integers(0, 8, size=(n, m))]
+    cand = (cand + rng.integers(0, 2, size=cand.shape)).astype(np.int32)
+    cand[rng.random(cand.shape) < 0.6] = SENTINEL
+    cand[:256] = SENTINEL
+    cand[256:512] = -POS_BIAS + 77
+    k = m // 3
+    cand[512:1024] = SENTINEL
+    cand[512:1024, :k] = -POS_BIAS + 5
+    cand[512:1024, k : 2 * k] = -POS_BIAS + 9
+    return cand
+
+
+def front_tables(rng, slot_bits: int, dev):
+    """A CSR offsets table of 2^slot_bits slots with 0-4 entries each, as
+    uint32 bit patterns on ``dev``, and its packed row128 form
+    (index.store.pack_offsets_row128 at P = 16)."""
+    import torch
+
+    from urmap_tpu_torch._bits import as_i32
+    from urmap_tpu_torch.index.store import pack_offsets_row128
+
+    S = 1 << slot_bits
+    off = np.zeros(S + 1, np.uint32)
+    np.cumsum(rng.integers(0, 5, size=S, dtype=np.uint8), dtype=np.uint32,
+              out=off[1:])
+    pk = pack_offsets_row128(off, P)
+    check(pk is not None, "the synthetic offsets do not pack")
+
+    def put(a):
+        return torch.from_numpy(as_i32(a)).to(dev)
+
+    return {"plain": (put(off), None, (0, 0)),
+            "packed": (put(pk["opacked"]), put(pk["obase"]),
+                       (pk["cnt_bits"], pk["block_bits"]))}
+
+
+def fits16(L: int, hw: int, cells: int, sc) -> bool:
+    """Whether plain-mode values over ``cells`` band cells stay inside
+    int16 (csrc/banded_dp.cu fits16): where they do, the least work takes
+    two cells an instruction."""
+    S = 2 * hw + 2
+    m, x, o, e = sc.match, sc.mismatch, sc.gap_open, sc.gap_extend
+    if not (m > x and m >= 0 and x <= 0 and o <= 0 and e < 0):
+        return False
+    if ((x - 2 * e) * S < 0) != ((m - 2 * e) * S < 0):
+        return False
+    ext, opn = -e * S, -o * S
+    lo = -((L + 2) * -x * S + 2 * opn + ext)
+    hi = (L + 2) * m * S + S + opn + (2 * L + cells + 2) * ext
+    return lo > -32768 and hi < 32767
+
+
+def shape_cases(dev, rng, n_reads: int, sc) -> dict:
+    """Phase 3's cases of the shapes the card takes since the seed front
+    and the band half-widths, long reads and candidate counts past the
+    default: name → (kernel, plain version, inputs, integer instructions
+    [, bytes]), as in phase_kernels."""
+    import torch
+
+    from urmap_tpu_torch import genome_pack as gpk
+    from urmap_tpu_torch.kernels import banded_dp, seed_slots, tb_dp, vote
+    from urmap_tpu_torch.map import dp as dpmod
+    from urmap_tpu_torch.map import seed as seedmod
+    from urmap_tpu_torch.map import tb as tbmod
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = {}
+    # B1 (both modes) and B1' at hw 12, 24, 40 (the runtime body), B1 at
+    # L = 700 and 2,000 (fewer candidates a block), with the cell counts
+    # of phase_kernels: plain mode 3 per cell in 16-bit pairs wherever
+    # fits16 holds over the band's own cells (hw 12 and 24 at L_MAX), else
+    # 6 in 32 bits; clip mode 7.5.
+    for name, hw, L, clip in (("hw12", 12, L_MAX, False),
+                              ("hw24", 24, L_MAX, False),
+                              ("hw40", 40, L_MAX, False),
+                              ("hw12_clip", 12, L_MAX, True),
+                              ("hw24_clip", 24, L_MAX, True),
+                              ("hw40_clip", 40, L_MAX, True),
+                              ("L700", HW, 700, False),
+                              ("L2000", HW, 2000, False)):
+        w, r, ln = (put(a) for a in shape_dp_inputs(rng, n_reads, L, hw))
+        co = sc.clip_open if clip else None
+        rows = int(ln.clamp(0, L).sum())
+        cells = 2 * hw + 1
+        per_cell = 7.5 if clip else (3 if fits16(L, hw, cells, sc) else 6)
+        cases[f"banded_dp_{name}"] = (
+            lambda w=w, r=r, ln=ln, hw=hw, co=co: banded_dp.banded_from_windows(
+                w, r, ln, hw=hw, sc=sc, clip_open=co),
+            lambda w=w, r=r, ln=ln, hw=hw, co=co: dpmod.banded_from_windows(
+                w, r, ln, hw=hw, sc=sc, clip_open=co),
+            (w, r, ln), rows * (cells * per_cell + 3))
+        if L == L_MAX and not clip:
+            # B1' over a byte genome holding these windows end to end
+            g = w.reshape(-1)
+            cand = (torch.arange(n_reads, dtype=torch.int32, device=dev)
+                    * (L + 2 * hw) + hw)
+            cases[f"banded_semiglobal_{name}"] = (
+                lambda g=g, c=cand, r=r, ln=ln, hw=hw:
+                    banded_dp.banded_semiglobal(g, c, r, ln, hw=hw, sc=sc),
+                lambda g=g, c=cand, r=r, ln=ln, hw=hw:
+                    dpmod.banded_semiglobal(g, c, r, ln, hw=hw, sc=sc),
+                (g, cand, r, ln), rows * (cells * per_cell + 3 + 2 + 4)
+                + n_reads * cells * 2,
+                n_reads * ((L + 2 * hw) + L + 4 + 4 + 16))
+    # B6 and B7 at hw 12, 24, 31 (the runtime body's variants), B6 at L =
+    # 700 and 2,000; 15 per cell as in phase_kernels (B6: the rows below
+    # each length and ~12 a row for the walk; B7: all L rows)
+    for name, hw, L in (("hw12", 12, L_MAX), ("hw24", 24, L_MAX),
+                        ("hw31", 31, L_MAX), ("L700", HW, 700),
+                        ("L2000", HW, 2000)):
+        args = tuple(put(a) for a in shape_dp_inputs(rng, TB_C, L, hw))
+        cells = 2 * hw + 1
+        cases[f"tb_dops_{name}"] = (
+            lambda a=args, hw=hw: tb_dp.tb_dops_from_windows(*a, hw=hw, sc=sc),
+            lambda a=args, hw=hw: tbmod.tb_dops_from_windows(*a, hw=hw,
+                                                             sc=sc),
+            args, int(args[2].clamp(0, L).sum()) * (cells * 15 + 12))
+        if L == L_MAX:
+            cases[f"tb_bits_{name}"] = (
+                lambda a=args, hw=hw: tb_dp.tb_from_windows(*a, hw=hw, sc=sc),
+                lambda a=args, hw=hw: tbmod.tb_from_windows(*a, hw=hw, sc=sc),
+                args, TB_C * L * cells * 15)
+    # B4 at Q x P = 256 and 2,048 (the shared-memory body): the bitonic
+    # network's s (s + 1) / 2 stages of MP / 2 compare-exchanges (2
+    # each), a head test per value, V maxima over MP keys in three-input
+    # maxima
+    for m in (256, 2048):
+        c = put(vote_inputs(rng, n_reads, m))
+        lg = m.bit_length() - 1
+        cases[f"vote_m{m}"] = (
+            lambda c=c: vote.vote(c, v=V),
+            lambda c=c: seedmod.vote_top_candidates(c, v=V), (c,),
+            n_reads * (lg * (lg + 1) // 2 * m + m + V * m // 2))
+    # the seed front at the path's shapes: B = n_reads / 2 forward reads
+    # from their upload blocks → 2B read-strands x Q seeds, over a table
+    # of 2^27 slots (the slice's), in both offsets forms. Per read: ~15
+    # instructions a forward word (byte merge, Morton spread, tail mask),
+    # ~55 a reverse-complement word (word select, two funnels, two lane
+    # reversals, complement and masks), and per seed B3's 40 and 4 for
+    # the decode; bytes: the upload and lengths in, the words, seeds and
+    # runs out, and two table words a seed.
+    codes = rng.integers(0, 4, size=(n_reads // 2, L_MAX)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 5
+    lens = np.full(n_reads // 2, READ_LEN, np.int32)
+    lens[::9] = np.resize([0, 5, K, L_MAX], len(lens[::9]))
+    codes[np.arange(L_MAX)[None, :] >= lens[:, None]] = 5
+    pk, nm = (put(a) for a in gpk.pack_read_codes_host(codes))
+    fl = put(lens)
+    nw = -(-L_MAX // 16)
+    tabs = front_tables(rng, 27 if n_reads >= 2 * B else 20, dev)
+    for name, key in (("seed_front", "plain"),
+                      ("seed_front_packed", "packed")):
+        off, ob, (cb, bb) = tabs[key]
+        kw = dict(k=K, q=Q, slot_bits=27 if n_reads >= 2 * B else 20,
+                  offsets=off, obase=ob, cnt_bits=cb, block_bits=bb)
+        nr = n_reads // 2
+        cases[name] = (
+            lambda kw=kw: seed_slots.seed_front(pk, nm, fl, L_MAX, **kw),
+            lambda kw=kw: seedmod.seed_front_plain(pk, nm, fl, L_MAX, **kw),
+            (pk, nm, fl), nr * (nw * (15 + 55) + 2 * Q * 44),
+            nbytes((pk, nm, fl)) + nr * (2 * nw * 4 * 2 + 2 * Q * 17)
+            + nr * 2 * Q * 8)
+    return cases
+
+
 def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     """Each kernel against its plain version on ``dev`` → per-kernel
     records: max_abs_err, ms, plain_ms and the bound. ``bound_ms`` is
@@ -351,8 +573,7 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     from urmap_tpu_torch import _bits
     from urmap_tpu_torch.config import ScoreConfig
     from urmap_tpu_torch import genome_pack as gpk
-    from urmap_tpu_torch.kernels import (banded_dp, lane_rotate, seed_slots,
-                                         tb_dp, vote)
+    from urmap_tpu_torch.kernels import banded_dp, lane_rotate, tb_dp, vote
     from urmap_tpu_torch.map import dp as dpmod
     from urmap_tpu_torch.map import seed as seedmod
     from urmap_tpu_torch.map import tb as tbmod
@@ -372,14 +593,6 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     # name → (kernel, plain version, input tensors, integer instructions
     # [, bytes where they are not the inputs' and outputs' sizes])
     cases = {
-        # per (read, seed): three words of each plane funnel-shifted, a
-        # 2-bit lane reversal, the N test and murmur3-fmix32: ~40
-        "seed_slots": (
-            lambda: seed_slots.seed_slots_words(rp, rn, lens, L_MAX, k=K,
-                                                q=Q, slot_bits=27),
-            lambda: seedmod.extract_seed_slots_words(rp, rn, lens, L_MAX,
-                                                     k=K, q=Q, slot_bits=27),
-            (rp, rn, lens), n_reads * Q * 40),
         # per read, the least the function needs whatever computes it:
         # the 28-stage bitonic network's 64 compare-exchanges a stage
         # (min and max: 2), a head test per value (1 x 128) and V maxima
@@ -581,6 +794,7 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
         lambda: tb_dp.tb_from_windows(win, tb_reads, ln, hw=HW, sc=sc),
         lambda: tbmod.tb_from_windows(win, tb_reads, ln, hw=HW, sc=sc),
         (win, tb_reads, ln), TB_C * L_MAX * W * 15)
+    cases.update(shape_cases(dev, rng, n_reads, sc))
     recs = {}
     for name, (kern, plain, inputs, ops, *moved) in cases.items():
         got = kern()
@@ -604,7 +818,7 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
         if name.startswith("banded_"):
             s = want[0]
             rec["negative_scores"] = int((s < 0).sum())
-        if name.startswith("banded_dp"):
+        if name in ("banded_dp", "banded_dp_clip"):
             # the same call with no rows to run: the host's enqueue, the
             # staging, the bit planes and the outputs
             no_rows = (inputs[0], inputs[1], torch.zeros_like(inputs[2]),
@@ -1414,6 +1628,135 @@ def phase_semiglobal(dev, w: dict, run: dict, n: int) -> dict:
     return counts
 
 
+def plant_long_reads(rng, db, n: int, lo: int, hi: int, max_indel: int):
+    """Planted reads of lo-hi bases from both strands, the slice's mix:
+    1% SNPs per base, 5% with a 1-max_indel bp indel, 1% with a random
+    tail of 55-65% of the read (the clip-rescue lane maps them), 1% junk.
+    Returns (list of codes arrays, truth_pos int64 (-1 junk), strand)."""
+    from urmap_tpu_torch import alphabet
+
+    g = db.codes
+    start, end = int(db.starts[0]), int(db.starts[0] + db.lengths[0])
+    isn = np.concatenate([[0], np.cumsum(g >= 4)])
+    lens = rng.integers(lo, hi + 1, size=n)
+    kind = rng.choice(4, size=n, p=[0.93, 0.05, 0.01, 0.01])
+    pos = np.zeros(n, np.int64)
+    todo = np.arange(n)
+    while todo.size:
+        p = rng.integers(start, end - hi - max_indel - 16, size=todo.size)
+        span = lens[todo] + max_indel + 16
+        ok = isn[p + span] - isn[p] == 0
+        pos[todo[ok]] = p[ok]
+        todo = todo[~ok]
+    strand = rng.integers(0, 2, size=n).astype(np.int32)
+    reads = []
+    for i in range(n):
+        ln = int(lens[i])
+        seg = g[pos[i] : pos[i] + ln + max_indel]
+        r = seg[:ln].copy()
+        if kind[i] == 1:
+            o = int(rng.integers(8, ln - 8))
+            d = int(rng.integers(1, max_indel + 1))
+            r = (np.concatenate([seg[:o], seg[o + d : ln + d]])
+                 if rng.random() < 0.5 else
+                 np.concatenate([seg[:o], rng.integers(0, 4, d), seg[o:]]))
+            r = r[:ln].astype(np.uint8)
+        elif kind[i] == 2:
+            t = int(ln * rng.uniform(0.55, 0.65))
+            r[ln - t :] = rng.integers(0, 4, t)
+        elif kind[i] == 3:
+            r = rng.integers(0, 4, ln).astype(np.uint8)
+        if kind[i] != 3:
+            snp = rng.random(ln) < 0.01
+            r[snp] = (r[snp] + rng.integers(1, 4, int(snp.sum()))) % 4
+        if strand[i]:
+            r = alphabet.COMP_CODE[r[::-1]]
+        reads.append(r.astype(np.uint8))
+    return reads, np.where(kind == 3, -1, pos), strand
+
+
+def write_fastq_rows(path: str, reads) -> None:
+    chars = np.frombuffer(b"ACGTNN", np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, chars[r].tobytes(),
+                                                    b"I" * len(r))
+                         for i, r in enumerate(reads)))
+
+
+def phase_shapes(dev, w: dict, smi: str, work: str, n: int) -> dict:
+    """A Mapper over the slice's aligned tables at band_halfwidth 24 and
+    max_read_len 704 (shapes the card refused before) with the device
+    traceback on: n planted reads of 250-700 bases with indels up to 24
+    bases; the slice's checks; then the first N_SHAPES_CPU reads on the
+    card and on a CPU Mapper: MapResult, tb dict and SAM bytes equal."""
+    import torch
+
+    from urmap_tpu_torch.config import MapConfig, ScoreConfig
+    from urmap_tpu_torch.map import Mapper
+
+    db = w["db"]
+    mcfg = MapConfig(batch_size=SHAPES_BATCH, band_halfwidth=SHAPES_HW,
+                     max_read_len=SHAPES_L, rescue_window=2 * SHAPES_L + 1200)
+    check(mcfg.tb_bits, "the shapes config has the traceback on")
+    sc = ScoreConfig()
+    rng = np.random.default_rng([w["seed"], 2])
+    reads, truth, strand = plant_long_reads(rng, db, n, 250, 700, SHAPES_HW)
+    fq, fq_cpu = (os.path.join(work, f) for f in ("shapes.fq",
+                                                  "shapes_cpu.fq"))
+    write_fastq_rows(fq, reads)
+    write_fastq_rows(fq_cpu, reads[:N_SHAPES_CPU])
+    mapper = Mapper(w["index"], mcfg, sc, device=dev, prepared=w["prepared"])
+    check(mapper.tb, "the shapes Mapper has the traceback on")
+    reset_counters()
+    t0 = time.perf_counter()
+    results, sam = map_fastq(mapper, db, fq, SHAPES_BATCH, None)
+    torch.cuda.synchronize(dev)
+    map_s = time.perf_counter() - t0
+    counts = read_counters()
+    res = concat_results(results)
+    planted = truth >= 0
+    correct = res.mapped & (res.pos == truth) & (res.strand == strand)
+    frac = float(correct[planted].mean())
+    junk_unmapped = float((~res.mapped[~planted]).mean())
+    cover = tb_coverage(results)
+    # the first reads again, on the card and on a CPU Mapper
+    on_results, on_sam = map_fastq(mapper, db, fq_cpu, SHAPES_BATCH, None)
+    t1 = time.perf_counter()
+    cpu_mapper = Mapper(w["index"], mcfg, sc, device="cpu",
+                        prepared=w["prepared"])
+    cpu_results, cpu_sam = map_fastq(cpu_mapper, db, fq_cpu, SHAPES_BATCH,
+                                     None)
+    diff = differing(concat_results(cpu_results), concat_results(on_results))
+    tb_diff = sorted({k for a, b in zip(cpu_results, on_results)
+                      for k in tb_differing(a.tb, b.tb)})
+    emit({"phase": "shapes", "device": str(dev), "gpu": smi,
+          "band_halfwidth": SHAPES_HW, "max_read_len": SHAPES_L,
+          "reads": n, "read_lengths": [250, 700], "batch": SHAPES_BATCH,
+          "batches": len(results), "map_s": map_s,
+          "reads_per_s": n / map_s, "correct_frac": frac,
+          "junk_unmapped_frac": junk_unmapped,
+          "gapped": int(res.gapped.sum()), "clipped": int(res.clipped.sum()),
+          "traceback": cover, "counters": counts,
+          "cpu_reads": N_SHAPES_CPU, "cpu_fields_differing": diff,
+          "cpu_tb_keys_differing": tb_diff,
+          "cpu_sam_identical": cpu_sam == on_sam,
+          "cpu_map_s": time.perf_counter() - t1})
+    check_counters(counts, "shapes")
+    check(counts["tb_dops"]["launches"] == len(results),
+          f"shapes: tb_dops launches {counts['tb_dops']['launches']} != "
+          f"batches {len(results)}")
+    check(frac >= 0.99, f"shapes: correct fraction {frac} < 0.99")
+    check(junk_unmapped >= 0.99,
+          f"shapes: junk unmapped {junk_unmapped} < 0.99")
+    check(len(cpu_results) == len(on_results), "shapes: batch counts differ")
+    check(not diff, f"shapes: card and CPU differ in {diff}")
+    check(not tb_diff, f"shapes: card and CPU tb records differ in {tb_diff}")
+    check(cpu_sam == on_sam, "shapes: card and CPU SAM bytes differ")
+    check(sam.startswith(on_sam), "shapes: the first reads map differently "
+          "alone and in the full run")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1489,6 +1832,8 @@ def main(argv=None) -> int:
     r128 = phase_row128(dev, w, mappers["row128"], aligned, B, smi, work)
     pe_counts = phase_paired(dev, w, mappers["row128"], smi, work)
     sg_counts = phase_semiglobal(dev, w, r128, N_CPU)
+    w["seed"] = args.seed
+    sh_counts = phase_shapes(dev, w, smi, work, N_SHAPES)
 
     src = "urmap_tpu_torch/csrc/"
     tpu = "urmap_tpu/kernels/"
@@ -1496,7 +1841,7 @@ def main(argv=None) -> int:
     w_rescue = 2 * (-(-RESCUE_W // 16) + 1)
     # name → (source, TPU kernel)
     sources = {
-        "seed_slots": ("seed_slots.cu", "seed_slots.py:192"),
+        "seed_front": ("seed_slots.cu", "seed_slots.py:192"),
         "row128_fetch": ("lane_rotate.cu", "lane_rotate.py:120"),
         "vote": ("vote.cu", "vote.py:123"),
         "window_mismatches": ("lane_rotate.cu", "lane_rotate.py:120"),
@@ -1527,9 +1872,21 @@ def main(argv=None) -> int:
     # the same kernel held against its plain version on other inputs in
     # phase 3: the [R, 128] view of the table, other batch sizes
     variants = {
+        "seed_front": ["seed_front_packed"],
+        "vote": ["vote_m256", "vote_m2048"],
         "window_mismatches": ["window_mismatches_row128"],
         "window_codes": ["window_codes_row128"],
-        "tb_dops": ["tb_dops_n128", "tb_dops_n16384"]}
+        "banded_dp": ["banded_dp_hw12", "banded_dp_hw24", "banded_dp_hw40",
+                      "banded_dp_L700", "banded_dp_L2000"],
+        "banded_dp_clip": ["banded_dp_hw12_clip", "banded_dp_hw24_clip",
+                           "banded_dp_hw40_clip"],
+        "banded_semiglobal": ["banded_semiglobal_hw12",
+                              "banded_semiglobal_hw24",
+                              "banded_semiglobal_hw40"],
+        "tb_dops": ["tb_dops_n128", "tb_dops_n16384", "tb_dops_hw12",
+                    "tb_dops_hw24", "tb_dops_hw31", "tb_dops_L700",
+                    "tb_dops_L2000"],
+        "tb_bits": ["tb_bits_hw12", "tb_bits_hw24", "tb_bits_hw31"]}
 
     def launches_in(counts: dict, name: str) -> int:
         """Launches of a kernels-line entry in one path's counters."""
@@ -1547,7 +1904,8 @@ def main(argv=None) -> int:
     # rotate and tb_bits have no caller on any path: 0; phase 3 launched
     # them phase3_launches times (one compared, eight timed).
     paths = {"slice": aligned["counts"], "row128": r128["counts"],
-             "paired": pe_counts, "semiglobal": sg_counts}
+             "paired": pe_counts, "semiglobal": sg_counts,
+             "shapes": sh_counts}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []

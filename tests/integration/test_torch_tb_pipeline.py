@@ -141,11 +141,14 @@ def test_tb_pass_device_whole_matrix(world, nrows, overflow):
         sc=jm.sc))
     trp, trn = tgpk.pack_reads(torch.from_numpy(codes),
                                torch.from_numpy(lens), nw)
+    # both strands' words, stacked as the seed front gives them
+    rrp, rrn = tgpk.revcomp_words(trp, trn, torch.from_numpy(lens), L)
     ktb.counter.reset()
     got = tpipe.tb_pass_device(
         tm.tables, torch.from_numpy(pos), torch.from_numpy(res.strand),
-        torch.from_numpy(lens), torch.from_numpy(gsel), trp, trn, L=L,
-        mcfg=mcfg, sc=tm.sc).numpy()
+        torch.from_numpy(lens), torch.from_numpy(gsel),
+        torch.cat([trp, rrp]), torch.cat([trn, rrn]), L=L, mcfg=mcfg,
+        sc=tm.sc).numpy()
     assert ktb.counter.plain_calls == 1
     assert got.shape == want.shape == (tpipe.tb_rows(mcfg), C)
     assert got.dtype == want.dtype == np.int32

@@ -39,7 +39,7 @@ def test_binding_defines_the_eleven_operators():
     assert len(DEFINED) == len(set(DEFINED)) == 11
     assert {"window_codes", "window_mismatches", "tb_dops", "tb_bits",
             "row128_fetch", "row128_window_fetch", "rotate_narrow",
-            "seed_slots", "vote", "banded_dp",
+            "seed_front", "vote", "banded_dp",
             "banded_semiglobal"} == set(DEFINED)
 
 

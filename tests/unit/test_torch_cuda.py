@@ -154,13 +154,21 @@ def test_tb_kernel_matches_plain(cuda_device, mode, hw, L):
 
 
 def test_tb_kernel_refuses_uncompiled_halfwidth(cuda_device):
-    """No kernel for hw=32: a CUDA tensor raises, it never falls back."""
+    """B6 has no kernel for hw=32: a dops record holds the deletion run
+    in 6 bits, and a CUDA tensor raises with that reason, it never falls
+    back. B7 has one, equal to its plain version."""
     from urmap_tpu_torch.kernels import tb_dp
+    from urmap_tpu_torch.map import tb as plain
 
     win, reads, lens = _tb_inputs(4, 64, 96, 32, cuda_device)
-    for fn in (tb_dp.tb_dops_from_windows, tb_dp.tb_from_windows):
-        with pytest.raises(ValueError, match="no kernel for hw=32"):
-            fn(win, reads, lens, hw=32, sc=ScoreConfig())
+    with pytest.raises(ValueError, match="no kernel for hw=32: a dops "
+                                         "record holds the deletion run in "
+                                         "6 bits"):
+        tb_dp.tb_dops_from_windows(win, reads, lens, hw=32, sc=ScoreConfig())
+    got = tb_dp.tb_from_windows(win, reads, lens, hw=32, sc=ScoreConfig())
+    want = plain.tb_from_windows(win, reads, lens, hw=32, sc=ScoreConfig())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("max_read_len,tb_bits", [(160, True), (150, True),
@@ -180,7 +188,7 @@ def test_cuda_mapper_matches_cpu_mapper(cuda_device, max_read_len, tb_bits):
     got = Mapper(idx, mcfg, device=cuda_device).map_codes(codes, lengths)
     by_name = {c.name: c for c in counters()}
     assert all(by_name[k].launches > 0 and by_name[k].plain_calls == 0
-               for k in ("seed_slots", "vote", "banded_dp"))
+               for k in ("seed_front", "vote", "banded_dp"))
     assert by_name["tb_dops"].launches == (2 if tb_bits else 0)
     assert by_name["tb_dops"].plain_calls == 0
     want = Mapper(idx, mcfg, device="cpu").map_codes(codes, lengths)
@@ -531,10 +539,12 @@ def test_vote_kernel_edges_match_plain(cuda_device, m, v):
 
 
 @pytest.mark.parametrize("clip", [False, True])
-@pytest.mark.parametrize("hw,L", [(16, 160), (8, 100), (32, 96)])
+@pytest.mark.parametrize("hw,L", [(16, 160), (8, 100), (32, 96), (12, 160),
+                                  (24, 150), (40, 120)])
 def test_banded_semiglobal_kernel_matches_plain(cuda_device, clip, hw, L):
-    """B1' at the path's shape and at the other compiled half-widths,
-    candidates off both ends of the genome."""
+    """B1' at the path's shape, at the other compiled half-widths and at
+    half-widths of the runtime body, candidates off both ends of the
+    genome."""
     from urmap_tpu_torch.kernels import banded_dp
     from urmap_tpu_torch.map import dp
 
@@ -572,8 +582,8 @@ def test_banded_semiglobal_kernel_matches_plain(cuda_device, clip, hw, L):
     want = dp.banded_semiglobal(*args, hw=hw, sc=sc, clip_open=co)
     for name, g, w in zip(("score", "d0", "ungapped", "span"), got, want):
         assert g.dtype == w.dtype and torch.equal(g, w), name
-    with pytest.raises(ValueError, match="no kernel for hw=12"):
-        dp.banded_dispatch(*args, hw=12, sc=sc, clip_open=co)
+    with pytest.raises(ValueError, match="no kernel for hw=272"):
+        dp.banded_dispatch(*args, hw=272, sc=sc, clip_open=co)
 
 
 @pytest.mark.parametrize("row128", [False, True])
@@ -601,7 +611,7 @@ def test_cuda_paired_mapper_matches_cpu(cuda_device, monkeypatch, row128):
     got = pm.map_pair_codes(c1, ln, c2, ln)
     by_name = {c.name: c for c in counters()}
     assert all(by_name[k].launches > 0 and by_name[k].plain_calls == 0
-               for k in ("seed_slots", "vote", "banded_dp", "row128_fetch",
+               for k in ("seed_front", "vote", "banded_dp", "row128_fetch",
                          "window_codes", "window_mismatches", "tb_dops"))
     assert by_name["window_codes"].widths.get(mcfg.rescue_window, 0) > 0
     assert pm.stats["rescue_rounds"] > 0
@@ -620,3 +630,281 @@ def test_cuda_paired_mapper_matches_cpu(cuda_device, monkeypatch, row128):
             if k == "dops":      # live lanes: fill lanes are never read
                 x, y = x[:, a.tb["cols"]], y[:, b.tb["cols"]]
             np.testing.assert_array_equal(x, y, err_msg=f"{m}.tb.{k}")
+
+
+# ---- every shape the reference maps --------------------------------------
+
+def read_block(rng, n, L, k):
+    """Read codes uint8[n, L] (1% read-N, all-N rows) and lengths with
+    the edges: 0, below k, k, L - 1 and L."""
+    codes = rng.integers(0, 4, size=(n, L)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 5
+    codes[3::37] = 5
+    lens = rng.integers(max(k, L - 40), L + 1, size=n).astype(np.int32)
+    lens[::9] = np.resize([0, 1, k - 1, k, L - 1, L], len(lens[::9]))
+    codes[np.arange(L)[None, :] >= lens[:, None]] = 5
+    return codes, lens
+
+
+def front_inputs(rng, n, L, k, upload, packed, slot_bits):
+    """numpy inputs of the front at any size, with a synthetic CSR table:
+    (a, b, lengths, tables) where a, b are the upload blocks or the word
+    planes and tables holds offsets (int32 bit patterns), obase (or
+    None), cnt_bits and block_bits."""
+    from urmap_tpu_torch import genome_pack as gpk
+    from urmap_tpu_torch.index import store
+
+    codes, lens = read_block(rng, n, L, k)
+    if upload:
+        a, b = gpk.pack_read_codes_host(codes)
+    else:
+        a, b = (x.numpy() for x in gpk.pack_reads(
+            torch.from_numpy(codes), torch.from_numpy(lens), -(-L // 16)))
+    S = 1 << slot_bits
+    off = np.concatenate([[0], np.cumsum(rng.integers(0, 4, size=S))])
+    off = (off + np.uint64(0xFFFF_0000)).astype(np.uint32)  # wraps 2^32
+    tabs = {"offsets": off.view(np.int32), "obase": None, "cnt_bits": 0,
+            "block_bits": 0}
+    if packed:
+        pk = store.pack_offsets_row128(off, 4)
+        assert pk is not None
+        tabs = {"offsets": pk["opacked"].view(np.int32),
+                "obase": pk["obase"].view(np.int32),
+                "cnt_bits": pk["cnt_bits"], "block_bits": pk["block_bits"]}
+    return a, b, lens, tabs
+
+
+@pytest.mark.parametrize("n", [33, 8192, 32768])
+@pytest.mark.parametrize("hw,L", [(1, 60), (7, 150), (12, 160), (17, 150),
+                                  (24, 150), (31, 160), (33, 150),
+                                  (40, 120), (40, 160), (100, 96),
+                                  (271, 64)])
+@pytest.mark.parametrize("clip", [False, True])
+def test_banded_dp_runtime_halfwidths_match_plain(cuda_device, clip, hw, L,
+                                                  n):
+    """B1 at half-widths without a compiled body (the bodies compiled
+    for 16, 32 and 271 with the half-width at run time, plain mode in
+    16-bit pairs where they fit) equal to the plain version."""
+    from urmap_tpu_torch.kernels import banded_dp
+
+    args, want = _dp_plain(n, L, hw, clip)
+    sc = ScoreConfig()
+    got = banded_dp.banded_from_windows(
+        *args, hw=hw, sc=sc, clip_open=sc.clip_open if clip else None)
+    for name, g, w in zip(("score", "d0", "d1", "ungapped"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("hw,L,n,clip", [(16, 700, 33, False),
+                                         (16, 700, 32768, False),
+                                         (16, 700, 4096, True),
+                                         (24, 704, 8192, True),
+                                         (16, 2000, 8192, False),
+                                         (16, 2000, 33, True),
+                                         (8, 2000, 33, True),
+                                         (32, 2000, 300, False),
+                                         (16, 6000, 33, False),
+                                         (8, 6000, 40, False),
+                                         (24, 6000, 33, False)])
+def test_banded_dp_long_reads_match_plain(cuda_device, hw, L, n, clip):
+    """B1 on long read blocks: up to ~2,000 bases a full block of the
+    compiled body, at 6,000 the runtime body with fewer candidates a
+    block (a full block no longer fits shared memory)."""
+    from urmap_tpu_torch.kernels import banded_dp
+
+    args, want = _dp_plain(n, L, hw, clip)
+    sc = ScoreConfig()
+    got = banded_dp.banded_from_windows(
+        *args, hw=hw, sc=sc, clip_open=sc.clip_open if clip else None)
+    for name, g, w in zip(("score", "d0", "d1", "ungapped"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("mode", ["dops", "bits"])
+@pytest.mark.parametrize("hw,L,n", [(1, 60, 300), (2, 100, 2048),
+                                    (5, 101, 300), (12, 160, 2048),
+                                    (19, 150, 300), (20, 160, 2048),
+                                    (24, 150, 300), (31, 96, 2048),
+                                    (16, 700, 300), (16, 2000, 64),
+                                    (24, 704, 300)])
+def test_tb_kernels_every_halfwidth_match_plain(cuda_device, mode, hw, L, n):
+    """B6 and B7 at half-widths 1-31 (each variant of the runtime body)
+    and on long read blocks, with the lengths that pin the edges."""
+    from urmap_tpu_torch.kernels import tb_dp
+    from urmap_tpu_torch.map import tb as plain
+
+    if 2 <= hw <= 16:   # tb_edge_cases' deletions need hw - 1 <= 16
+        args = tuple(torch.from_numpy(a).to(cuda_device)
+                     for a in tb_edge_cases(13, n, L, hw))
+    else:
+        args = tuple(torch.from_numpy(a).to(cuda_device)
+                     for a in dp_edge_inputs(n, L, hw))
+    name = "tb_dops_from_windows" if mode == "dops" else "tb_from_windows"
+    cnt = tb_dp.counter if mode == "dops" else tb_dp.bits_counter
+    cnt.reset()
+    got = getattr(tb_dp, name)(*args, hw=hw, sc=ScoreConfig())
+    torch.cuda.synchronize()
+    assert cnt.launches == 1 and cnt.plain_calls == 0
+    want = getattr(plain, name)(*args, hw=hw, sc=ScoreConfig())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("hw,L", [(32, 96), (40, 100), (100, 64),
+                                  (271, 40)])
+def test_tb_bits_wide_halfwidths_match_plain(cuda_device, hw, L):
+    """B7 above B6's 31: the 8-lane variant to hw 35, then 32 lanes."""
+    from urmap_tpu_torch.kernels import tb_dp
+    from urmap_tpu_torch.map import tb as plain
+
+    args = tuple(torch.from_numpy(a).to(cuda_device)
+                 for a in dp_edge_inputs(300, L, hw))
+    got = tb_dp.tb_from_windows(*args, hw=hw, sc=ScoreConfig())
+    want = plain.tb_from_windows(*args, hw=hw, sc=ScoreConfig())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_long_read_limits_are_the_kernels(cuda_device):
+    """The limits card_limits names are where the kernels stop: one
+    winner (B6) and one candidate (B1) launch at the limit's read block
+    and are refused one base above it."""
+    from urmap_tpu_torch.kernels import banded_dp, tb_dp
+
+    sc = ScoreConfig()
+    for hw in (16, 24):
+        L = tb_dp.max_read_len(hw)
+        for length, ok in ((L, True), (L + 1, False)):
+            args = tuple(torch.from_numpy(a).to(cuda_device)
+                         for a in dp_edge_inputs(3, length, hw))
+            if ok:
+                got = tb_dp.tb_dops_from_windows(*args, hw=hw, sc=sc)
+                torch.cuda.synchronize()
+                assert got[0].shape == (3,)
+            else:
+                with pytest.raises(RuntimeError, match="CUDA error"):
+                    tb_dp.tb_dops_from_windows(*args, hw=hw, sc=sc)
+    assert banded_dp.max_read_len(16) > 80_000
+
+
+@pytest.mark.parametrize("m", [129, 200, 256, 2048, 4096])
+@pytest.mark.parametrize("v", [1, 8, "m"])
+def test_vote_kernel_many_candidates_match_plain(cuda_device, m, v):
+    """B4's shared-memory body above 128 candidates a read."""
+    from urmap_tpu_torch.kernels import vote
+    from urmap_tpu_torch.map.seed import vote_top_candidates
+
+    v = m if v == "m" else min(v, m)
+    cand = torch.from_numpy(vote_edge_inputs(301, m)).to(cuda_device)
+    vote.counter.reset()
+    got = vote.vote(cand, v=v)
+    torch.cuda.synchronize()
+    assert vote.counter.launches == 1 and vote.counter.plain_calls == 0
+    want = vote_top_candidates(cand, v=v)
+    for name, g, w in zip(("top", "votes"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    with pytest.raises(ValueError, match="M <= 4096"):
+        vote.vote(torch.zeros((2, 4097), dtype=torch.int32,
+                              device=cuda_device), v=1)
+
+
+@pytest.mark.parametrize("upload", [True, False])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("L,k,q", [(160, 24, 8), (150, 24, 8), (704, 24, 8),
+                                   (40, 12, 3), (64, 32, 1)])
+def test_seed_front_kernel_matches_plain(cuda_device, upload, packed, L, k,
+                                         q):
+    """The seed front against its plain version on every output: both
+    inputs (the upload blocks, the word planes), plain and packed
+    offsets, lengths 0, below k, L, and read-N."""
+    from urmap_tpu_torch.kernels import seed_slots
+    from urmap_tpu_torch.map.seed import seed_front_plain
+
+    a, b, lens, tabs = front_inputs(np.random.default_rng(L + k), 2051, L,
+                                    k, upload, packed, slot_bits=14)
+    put = lambda x: None if x is None else torch.from_numpy(x).to(
+        cuda_device)
+    args = (put(a), put(b), put(lens), L)
+    kw = dict(k=k, q=q, slot_bits=14, offsets=put(tabs["offsets"]),
+              obase=put(tabs["obase"]), cnt_bits=tabs["cnt_bits"],
+              block_bits=tabs["block_bits"])
+    seed_slots.counter.reset()
+    got = seed_slots.seed_front(*args, **kw)
+    torch.cuda.synchronize()
+    assert seed_slots.counter.launches == 1
+    assert seed_slots.counter.plain_calls == 0
+    want = seed_front_plain(*args, **kw)
+    for name, g, w in zip(("rpacked2", "rnplane2", "offs", "valid", "start",
+                           "cnt"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("hw,max_read_len,p", [(12, 160, 16), (24, 704, 16),
+                                               (16, 160, 32)])
+def test_cuda_mapper_new_shapes_match_cpu(cuda_device, hw, max_read_len, p):
+    """Mapper and PairedMapper at band half-widths 12 and 24 with the
+    traceback on, at max_read_len 704 (reads above 624), and at Q x P =
+    256: through the kernels only, equal to the CPU's."""
+    from urmap_tpu_torch.map.pair import PairedMapper
+
+    rng = np.random.default_rng(hw + p)
+    db = make_seqdb(rng, [400_000])
+    n = 300
+    lens = np.where(np.arange(n) % 3 == 0, max_read_len,
+                    np.minimum(150, max_read_len)).astype(np.int32)
+    reads = [plant_read(rng, db, length=int(ln),
+                        n_snps=int(rng.integers(0, 6)),
+                        ins=int(rng.integers(0, 2)) * min(hw - 2, 10))
+             for ln in lens]
+    codes = np.full((n, max_read_len), 5, np.uint8)
+    for i, r in enumerate(reads):
+        codes[i, : len(r.codes)] = r.codes
+    idx = build_index(db)
+    mcfg = MapConfig(batch_size=256, max_read_len=max_read_len,
+                     band_halfwidth=hw, positions_per_seed=p,
+                     rescue_window=2 * max_read_len + 1200)
+    for c in counters():
+        c.reset()
+    got = Mapper(idx, mcfg, device=cuda_device).map_codes(codes, lens)
+    by_name = {c.name: c for c in counters()}
+    assert all(by_name[k].launches > 0 and by_name[k].plain_calls == 0
+               for k in ("seed_front", "vote", "banded_dp", "tb_dops"))
+    want = Mapper(idx, mcfg, device="cpu").map_codes(codes, lens)
+    for f in ("mapped", "pos", "strand", "score", "second", "mapq",
+              "gapped", "ungapped", "clipped", "suspect"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    for k in got.tb:
+        a, b = got.tb[k], want.tb[k]
+        if k == "dops":
+            a, b = a[:, got.tb["cols"]], b[:, want.tb["cols"]]
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    pairs = [plant_pair(rng, db, length=150, frag=int(rng.integers(250, 600)),
+                        n_snps=int(rng.integers(0, 3))) for _ in range(100)]
+    c1 = np.stack([q[0].codes for q in pairs])
+    c2 = np.stack([q[1].codes for q in pairs])
+    ln = np.full(len(pairs), 150, np.int32)
+    pg = PairedMapper(Mapper(idx, mcfg, device=cuda_device)) \
+        .map_pair_codes(c1, ln, c2, ln)
+    pw = PairedMapper(Mapper(idx, mcfg, device="cpu")) \
+        .map_pair_codes(c1, ln, c2, ln)
+    np.testing.assert_array_equal(pg.proper, pw.proper)
+    for m in ("m1", "m2"):
+        for f in ("mapped", "pos", "strand", "score", "mapq", "gapped"):
+            np.testing.assert_array_equal(getattr(getattr(pg, m), f),
+                                          getattr(getattr(pw, m), f),
+                                          err_msg=f"{m}.{f}")
+
+
+def test_cuda_mapper_refuses_beyond_the_kernels(cuda_device):
+    """A config past a kernel's limit is refused in __init__, before any
+    table loads (index=None shows nothing was touched), naming it."""
+    mcfg = MapConfig(max_read_len=12_000, rescue_window=30_000)
+    with pytest.raises(ValueError, match=r"kernel B6 \(tb_dops\) holds at "
+                                         r"most 10104 bases"):
+        Mapper(None, mcfg, device=cuda_device)
+    with pytest.raises(ValueError, match=r"kernel B4 \(vote\) takes at most "
+                                         "4096"):
+        Mapper(None, MapConfig(positions_per_seed=1024), device=cuda_device)

@@ -90,6 +90,25 @@
 //     fits16 shows the values stay inside int16 (reads up to ~300 codes
 //     at hw 16 with the default scores); the 32-bit body takes the rest
 //     and clip mode, whose S = L + 2 hw + 1 does not fit.
+//   - Band half-widths: kernels are compiled for hw 8, 16 and 32 (the
+//     band's cells known to the compiler). Any other hw runs the body
+//     compiled for HW' = 16 (hw 1-15), 32 (hw 17-31) or 271 (hw 33-271,
+//     32 lanes of 17 cells) with hw a runtime value (the template's RT):
+//     the band is the first W = 2 hw + 1 of the HW' cells, and the cells
+//     above it run on as an extension of the band that nothing of the
+//     band reads, as the cells past W already do in the compiled bodies.
+//     Only cell W - 1's E reads a cell above the band, and it takes the
+//     fill value, now at a band cell known at run time (a compare and
+//     select per cell and row). Plain mode keeps the 16-bit pairs there
+//     wherever fits16 holds at hw's S over the HW' cells.
+//   - Long reads: where the block's kThreads / K candidates (pairs in
+//     the 16-bit body) do not fit the 227 KB of shared memory a block
+//     may hold, the RT body runs with K = 4 and fewer candidates a
+//     block, halved at launch until they fit, the slots past them idle;
+//     one candidate is the limit (kernels/banded_dp.py max_read_len
+//     counts the same bytes: ~2.75 bytes a read base, ~80,000 bases).
+//     The compiled bodies (hw = HW, a full block) take both at compile
+//     time, so the runtime half-width costs the default paths nothing.
 // What is left (PERF.md): the rows are issue-bound at 16 int32 lanes a
 // clock per scheduler; each lane pays ~35 instructions a row for its
 // match bits, shuffles and scan.
@@ -131,8 +150,15 @@ struct Smem {
         pw((kPlanes * nwb) | 1),
         ws(32 * nwb + 16),
         rs((((L + 3) / 4) | 1) * 4) {}
+  // Where the window bytes start, past the planes of gpb candidates:
+  // 16-byte aligned for the 16-byte staging (a multiple of 64 already
+  // for the 16 or 32 candidates of a full block; 1 or 2 candidates' odd
+  // plane strides end on 4 or 8 bytes).
+  __host__ __device__ int win_off(int gpb) const {
+    return (gpb * 4 * pw + 15) & ~15;
+  }
   __host__ __device__ size_t bytes(int gpb) const {
-    return (size_t)gpb * (4 * pw + ws + rs);
+    return (size_t)win_off(gpb) + (size_t)gpb * (ws + rs);
   }
 };
 
@@ -234,16 +260,17 @@ struct ByteGenome {
 };
 
 // Stages candidates [first, first + ncand) of the block: their windows
-// and reads into shared memory, then the windows' bit planes. Ends with
+// (at win_all, past the planes) and reads into shared memory, then the
+// windows' bit planes. Ends with
 // a barrier, which returns whether a read byte of the block lies above 5.
 template <class Win>
 __device__ __forceinline__ bool stage_block(const Win& src,
                                             const uint8_t* reads, int n,
                                             int L, int hw, long long first,
                                             int ncand, const Smem& lay,
-                                            uint32_t* smem) {
+                                            uint32_t* smem,
+                                            uint8_t* win_all) {
   const int nwb = lay.nwb, ws = lay.ws;
-  uint8_t* win_all = (uint8_t*)(smem + ncand * lay.pw);
   uint8_t* read_all = win_all + ncand * ws;
   src.stage(win_all, ws, first, n, ncand, hw);
   stage_rows(read_all, lay.rs, reads, L, first, n, ncand, 5);
@@ -307,15 +334,16 @@ struct Outs {
 // band cell. Then the straight-diagonal score from the start cell b0c:
 // read base i against the base at cand - hw + b0c + i = POS + i, rows
 // split over the lanes; lane 0 writes.
-template <int HW, int K, class Win>
+template <int K, class Win>
 __device__ __forceinline__ void finish(const Win& src, long long t, int n,
-                                       int len, int rows, int L, int S,
+                                       int hw, int len, int rows, int L,
+                                       int S,
                                        int lbest, int lbend, int early,
                                        const uint8_t* win_s, int ws,
                                        const uint8_t* read_s, int lane,
                                        int match, int mismatch,
                                        const Outs& out) {
-  constexpr int W = 2 * HW + 1;
+  const int W = 2 * hw + 1;
 #pragma unroll
   for (int d = K / 2; d > 0; d >>= 1) {
     const int ov = __shfl_xor_sync(kFull, lbest, d, K);
@@ -334,7 +362,7 @@ __device__ __forceinline__ void finish(const Win& src, long long t, int n,
   const int b0c = best - sc * S;
   int u = 0;
   if (t < n && (Win::kByteGenome || b0c < W)) {
-    const typename Win::Row w = src.row(t, HW);
+    const typename Win::Row w = src.row(t, hw);
 #pragma unroll 4
     for (int i = lane; i < rows; i += K) {
       // past the staged columns only in B1's clip mode over the genome
@@ -346,46 +374,59 @@ __device__ __forceinline__ void finish(const Win& src, long long t, int n,
   for (int d = K / 2; d > 0; d >>= 1) u += __shfl_xor_sync(kFull, u, d, K);
   if (lane == 0 && t < n) {
     out.scores[t] = sc;
-    out.d0[t] = b0c - HW;
-    out.d1[t] = Win::kByteGenome ? len + lbend - b0c : lbend - HW;
+    out.d0[t] = b0c - hw;
+    out.d1[t] = Win::kByteGenome ? len + lbend - b0c : lbend - hw;
     out.ung[t] = u;
   }
 }
 
-template <int HW, bool CLIP, int K, class Win>
+// RT: the half-width `hw_rt` at run time (1 <= hw <= HW; the band on
+// the first W of the cells compiled for HW, see the header) and
+// `gpb_rt` candidates a block, at most kThreads / K, the slots past them
+// idle. Otherwise hw = HW and kThreads / K candidates, as compiled.
+template <int HW, bool CLIP, int K, bool RT, class Win>
 __global__ void __launch_bounds__(kThreads)
     banded_dp_kernel(const Win src, const uint8_t* __restrict__ reads,
                      const int32_t* __restrict__ lengths, const Outs out,
-                     int n, int L, int match, int mismatch, int gap_open,
-                     int gap_extend, int clip_open) {
-  constexpr int W = 2 * HW + 1;
-  constexpr int CPL = (W + K - 1) / K;  // band cells per lane
-  constexpr int NE = (CPL + 31) / 32;   // match-bit words per lane
-  constexpr int GPB = kThreads / K;     // candidates per block
-  constexpr int LANE_LAST = (W - 1) / CPL;  // where cell W - 1 lives
-  constexpr int K_LAST = (W - 1) % CPL;
+                     int n, int L, int hw_rt, int gpb_rt, int match,
+                     int mismatch, int gap_open, int gap_extend,
+                     int clip_open) {
+  const int hw = RT ? hw_rt : HW;
+  const int W = 2 * hw + 1;
+  constexpr int CPL = (2 * HW + K) / K;  // band cells per lane
+  constexpr int NE = (CPL + 31) / 32;    // match-bit words per lane
+  const int gpb = RT ? gpb_rt : kThreads / K;  // candidates per block
+  constexpr int LANE_LAST = 2 * HW / CPL;  // where cell 2 HW lives
+  constexpr int K_LAST = 2 * HW % CPL;
   static_assert(K >= 2, "cell W - 1 takes its fill where the next lane's E "
                         "would come in");
   extern __shared__ uint32_t smem[];
   const Smem lay(L, K * CPL);
   const int nwb = lay.nwb;
   const int ws = lay.ws;
-  const long long first = (long long)blockIdx.x * GPB;
-  const bool big = stage_block(src, reads, n, L, HW, first, GPB, lay, smem);
-  uint8_t* win_all = (uint8_t*)(smem + GPB * lay.pw);
-  uint8_t* read_all = win_all + GPB * ws;
+  const long long first = (long long)blockIdx.x * gpb;
+  // the windows past the planes (a full block's planes end on 64 bytes)
+  uint8_t* win_all = RT ? (uint8_t*)smem + lay.win_off(gpb)
+                        : (uint8_t*)(smem + gpb * lay.pw);
+  const bool big =
+      stage_block(src, reads, n, L, hw, first, gpb, lay, smem, win_all);
+  uint8_t* read_all = win_all + gpb * ws;
 
   const int g = threadIdx.x / K;
   const int lane = threadIdx.x % K;
-  const long long t = first + g;
+  // an idle slot reads candidate 0's bytes and is past n: writes nothing
+  const bool idle = RT && g >= gpb;
+  const int gs = idle ? 0 : g;
+  const long long t = idle ? (long long)n : first + g;
   const int b0 = lane * CPL;
-  const uint32_t* planes = smem + g * lay.pw;
-  const uint8_t* win_s = win_all + g * ws;
-  const uint8_t* read_s = read_all + g * lay.rs;
+  const int k_top = W - 1 - b0;  // RT: cell W - 1, if this lane holds it
+  const uint32_t* planes = smem + gs * lay.pw;
+  const uint8_t* win_s = win_all + gs * ws;
+  const uint8_t* read_s = read_all + gs * lay.rs;
   const int len = t < n ? lengths[t] : 0;
   const int rows = len < 0 ? 0 : (len > L ? L : len);
 
-  const int S = CLIP ? (L + 2 * HW + 1) : (W + 1);
+  const int S = CLIP ? (L + 2 * hw + 1) : (W + 1);
   const int negp = kNeg * S;
   const int open_s = gap_open * S, ext_s = gap_extend * S;
   const int match_s = match * S, mis_s = mismatch * S;
@@ -443,7 +484,13 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < CPL - 1; ++k)
         E[k] = __viaddmax_s32(H[k + 1], oe, E[k + 1]);
       E[CPL - 1] = __shfl_down_sync(kFull, y, 1, K);
-      if (lane == LANE_LAST) E[K_LAST] = fill;
+      if (RT) {
+#pragma unroll
+        for (int k = 0; k < CPL; ++k)
+          if (k == k_top) E[k] = fill;
+      } else if (lane == LANE_LAST) {
+        E[K_LAST] = fill;
+      }
       // T = max(diag, E), kept in H (the diagonal was its last reader)
 #pragma unroll
       for (int k = 0; k < CPL; ++k) {
@@ -517,14 +564,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int d = K / 2; d > 0; d >>= 1)
       early = max(early, __shfl_xor_sync(kFull, early, d, K));
   }
-  finish<HW, K>(src, t, n, len, rows, L, S, lbest, lbend, early, win_s, ws,
-                read_s, lane, match, mismatch, out);
+  finish<K>(src, t, n, hw, len, rows, L, S, lbest, lbend, early, win_s, ws,
+            read_s, lane, match, mismatch, out);
 }
 
 // ---- plain mode in 16-bit pairs ----------------------------------------
 //
 // Two candidates a thread: candidate first + g in the low halves of each
-// value, first + GPB + g in the high halves, and every cell update is the
+// value, first + gpb + g in the high halves, and every cell update is the
 // s16x2 form of the same DPX instruction (same issue rate, two cells).
 // Exact where fits16 below holds: every value that derives from the
 // initial row stays inside int16 at its row-and-column offset, and the
@@ -558,18 +605,23 @@ __device__ __forceinline__ void pair_match_bits(
     c[j] = __byte_perm(e[0][j / 2], e[1][j / 2], j % 2 ? 0x7632 : 0x5410);
 }
 
-template <int HW, int K, class Win>
+// RT: the half-width `hw_rt` at run time, 1 <= hw <= HW, as in
+// banded_dp_kernel; a block always stages kThreads / K pairs.
+template <int HW, int K, bool RT, class Win>
 __global__ void __launch_bounds__(kThreads)
     banded_dp16_kernel(const Win src, const uint8_t* __restrict__ reads,
                        const int32_t* __restrict__ lengths, const Outs out,
                        int n, int L, int match, int mismatch, int gap_open,
-                       int gap_extend) {
-  constexpr int W = 2 * HW + 1;
-  constexpr int CPL = (W + K - 1) / K;
+                       int gap_extend, int hw_rt) {
+  // hw_rt last: an int before `match` splits the 8-byte loads of the
+  // parameter pairs and changes the compiled bodies' code
+  const int hw = RT ? hw_rt : HW;
+  const int W = 2 * hw + 1;
+  constexpr int CPL = (2 * HW + K) / K;
   constexpr int NC = (CPL + 15) / 16;  // packed match-bit words
   constexpr int GPB = kThreads / K;    // candidate pairs per block
-  constexpr int LANE_LAST = (W - 1) / CPL;
-  constexpr int K_LAST = (W - 1) % CPL;
+  constexpr int LANE_LAST = 2 * HW / CPL;
+  constexpr int K_LAST = 2 * HW % CPL;
   static_assert(K >= 2, "cell W - 1 takes its fill where the next lane's E "
                         "would come in");
   extern __shared__ uint32_t smem[];
@@ -577,13 +629,15 @@ __global__ void __launch_bounds__(kThreads)
   const int nwb = lay.nwb, ws = lay.ws;
   const long long first = (long long)blockIdx.x * (2 * GPB);
   const bool big =
-      stage_block(src, reads, n, L, HW, first, 2 * GPB, lay, smem);
+      stage_block(src, reads, n, L, hw, first, 2 * GPB, lay, smem,
+                  (uint8_t*)(smem + 2 * GPB * lay.pw));
   const uint8_t* win_all = (const uint8_t*)(smem + 2 * GPB * lay.pw);
   const uint8_t* read_all = win_all + 2 * GPB * ws;
 
   const int g = threadIdx.x / K;
   const int lane = threadIdx.x % K;
   const int b0 = lane * CPL;
+  const int k_top = W - 1 - b0;  // RT: cell W - 1, if this lane holds it
   long long t[2];
   int len[2], rows[2];
   const uint32_t* planes[2];
@@ -636,7 +690,13 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < CPL - 1; ++k)
         E[k] = __viaddmax_s16x2(H[k + 1], oe2, E[k + 1]);
       E[CPL - 1] = __shfl_down_sync(kFull, y, 1, K);
-      if (lane == LANE_LAST) E[K_LAST] = kNeg2;
+      if (RT) {
+#pragma unroll
+        for (int k = 0; k < CPL; ++k)
+          if (k == k_top) E[k] = kNeg2;
+      } else if (lane == LANE_LAST) {
+        E[K_LAST] = kNeg2;
+      }
 #pragma unroll
       for (int k = 0; k < CPL; ++k) {
         const uint32_t sel =
@@ -690,9 +750,8 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
   for (int h = 0; h < 2; ++h)
-    finish<HW, K>(src, t[h], n, len[h], rows[h], L, S, lbest[h], lbend[h],
-                  INT_MIN, win_s[h], ws, read_s[h], lane, match, mismatch,
-                  out);
+    finish<K>(src, t[h], n, hw, len[h], rows[h], L, S, lbest[h], lbend[h],
+              INT_MIN, win_s[h], ws, read_s[h], lane, match, mismatch, out);
 }
 
 // Whether banded_dp16_kernel is exact for these reads and scores: the
@@ -718,63 +777,92 @@ bool fits16(int L, int hw, int cells, int match, int mismatch, int gap_open,
   return lo > -32768 && hi < 32767;
 }
 
-template <int HW, bool CLIP, int K, class Win>
+constexpr int kMaxSmem = 227 * 1024;  // an H100 block's most
+
+// Candidates a block stages: `most`, halved until their shared memory
+// fits; 0 if one does not.
+int fit_block(const Smem& lay, int most) {
+  for (int g = most; g >= 1; g >>= 1)
+    if (lay.bytes(g) <= (size_t)kMaxSmem) return g;
+  return 0;
+}
+
+template <class Kernel>
+int opt_in(Kernel kern, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;  // a long read: above the default
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int HW, bool CLIP, int K, bool RT, class Win>
 int launch_one(cudaStream_t s, const Win& src, const uint8_t* reads,
-               const int32_t* lengths, const Outs& out, int n, int L,
-               int match, int mismatch, int gap_open, int gap_extend,
-               int clip_open) {
-  constexpr int W = 2 * HW + 1;
-  constexpr int CPL = (W + K - 1) / K;
-  constexpr int GPB = kThreads / K;
-  const size_t bytes = Smem(L, K * CPL).bytes(GPB);
-  auto kern = banded_dp_kernel<HW, CLIP, K, Win>;
-  if (bytes > 48 * 1024) {  // a long read: opt in above the default
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const unsigned grid = (unsigned)((n + GPB - 1) / GPB);
-  kern<<<grid, kThreads, bytes, s>>>(src, reads, lengths, out, n, L, match,
-                                     mismatch, gap_open, gap_extend,
+               const int32_t* lengths, const Outs& out, int n, int L, int hw,
+               int gpb, int match, int mismatch, int gap_open,
+               int gap_extend, int clip_open) {
+  constexpr int CPL = (2 * HW + K) / K;
+  const size_t bytes = Smem(L, K * CPL).bytes(gpb);
+  auto kern = banded_dp_kernel<HW, CLIP, K, RT, Win>;
+  const int err = opt_in(kern, bytes);
+  if (err) return err;
+  const unsigned grid = (unsigned)((n + gpb - 1) / gpb);
+  kern<<<grid, kThreads, bytes, s>>>(src, reads, lengths, out, n, L, hw, gpb,
+                                     match, mismatch, gap_open, gap_extend,
                                      clip_open);
   return (int)cudaGetLastError();
 }
 
-template <int HW, int K, class Win>
+// The 16-bit body, if fits16 holds at hw over the HW cells and a full
+// block of pairs fits; else it launches nothing and `launched` is false
+// (the caller takes the 32-bit body).
+template <int HW, int K, bool RT, class Win>
 int launch16(cudaStream_t s, const Win& src, const uint8_t* reads,
-             const int32_t* lengths, const Outs& out, int n, int L, int match,
-             int mismatch, int gap_open, int gap_extend) {
-  constexpr int CPL = (2 * HW + 1 + K - 1) / K;
+             const int32_t* lengths, const Outs& out, int n, int L, int hw,
+             int match, int mismatch, int gap_open, int gap_extend,
+             bool& launched) {
+  constexpr int CPL = (2 * HW + K) / K;
   constexpr int PAIRS = 2 * (kThreads / K);  // candidates per block
+  launched = false;
   const size_t bytes = Smem(L, K * CPL).bytes(PAIRS);
-  auto kern = banded_dp16_kernel<HW, K, Win>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (bytes > (size_t)kMaxSmem ||
+      !fits16(L, hw, K * CPL, match, mismatch, gap_open, gap_extend))
+    return 0;
+  auto kern = banded_dp16_kernel<HW, K, RT, Win>;
+  const int err = opt_in(kern, bytes);
+  if (err) return err;
   const unsigned grid = (unsigned)((n + PAIRS - 1) / PAIRS);
   kern<<<grid, kThreads, bytes, s>>>(src, reads, lengths, out, n, L, match,
-                                     mismatch, gap_open, gap_extend);
+                                     mismatch, gap_open, gap_extend, hw);
+  launched = true;
   return (int)cudaGetLastError();
 }
 
-template <int HW, int K, class Win>
+// Plain mode in 16-bit pairs where they fit, else the 32-bit body; clip
+// mode in 32 bits. RT: hw at run time and the candidates a block fitted
+// to shared memory (none fits: cudaErrorInvalidValue).
+template <int HW, int K, bool RT, class Win>
 int launch_mode(bool clip, cudaStream_t s, const Win& src,
                 const uint8_t* reads, const int32_t* lengths,
-                const Outs& out, int n, int L, int match, int mismatch,
-                int gap_open, int gap_extend, int clip_open) {
-  constexpr int CPL = (2 * HW + 1 + K - 1) / K;
-  if (!clip && fits16(L, HW, K * CPL, match, mismatch, gap_open,
-                      gap_extend))
-    return launch16<HW, K>(s, src, reads, lengths, out, n, L, match,
-                           mismatch, gap_open, gap_extend);
-  return clip ? launch_one<HW, true, K>(s, src, reads, lengths, out, n, L,
-                                         match, mismatch, gap_open,
-                                         gap_extend, clip_open)
-              : launch_one<HW, false, K>(s, src, reads, lengths, out, n, L,
-                                          match, mismatch, gap_open,
-                                          gap_extend, clip_open);
+                const Outs& out, int n, int L, int hw, int match,
+                int mismatch, int gap_open, int gap_extend, int clip_open) {
+  if constexpr (HW <= 32) {  // no 16-bit body above
+    if (!clip) {
+      bool launched = false;
+      const int err = launch16<HW, K, RT>(s, src, reads, lengths, out, n, L,
+                                          hw, match, mismatch, gap_open,
+                                          gap_extend, launched);
+      if (err || launched) return err;
+    }
+  }
+  constexpr int CPL = (2 * HW + K) / K;
+  const int gpb = RT ? fit_block(Smem(L, K * CPL), kThreads / K)
+                     : kThreads / K;
+  if (gpb == 0) return (int)cudaErrorInvalidValue;
+  return clip ? launch_one<HW, true, K, RT>(s, src, reads, lengths, out, n, L,
+                                            hw, gpb, match, mismatch,
+                                            gap_open, gap_extend, clip_open)
+              : launch_one<HW, false, K, RT>(s, src, reads, lengths, out, n,
+                                             L, hw, gpb, match, mismatch,
+                                             gap_open, gap_extend, clip_open);
 }
 
 // Lanes per candidate (see the header): B1 the fewest that put
@@ -789,14 +877,26 @@ int launch_lanes(bool clip, cudaStream_t s, const Win& src,
                  int clip_open) {
   if constexpr (!Win::kByteGenome) {
     if (2LL * n >= kFullThreads)
-      return launch_mode<HW, 2>(clip, s, src, r, ln, out, n, L, match,
-                                mismatch, gap_open, gap_extend, clip_open);
+      return launch_mode<HW, 2, false>(clip, s, src, r, ln, out, n, L, HW,
+                                       match, mismatch, gap_open, gap_extend,
+                                       clip_open);
   }
-  return launch_mode<HW, 4>(clip, s, src, r, ln, out, n, L, match, mismatch,
-                            gap_open, gap_extend, clip_open);
+  return launch_mode<HW, 4, false>(clip, s, src, r, ln, out, n, L, HW, match,
+                                   mismatch, gap_open, gap_extend, clip_open);
 }
 
-// Band half-widths with a compiled kernel (the binding checks first).
+// Whether a full block of the compiled 32-bit body (kThreads / K
+// candidates, K as launch_lanes picks it) fits shared memory.
+template <int HW>
+bool full_block_fits(bool byte_genome, int n, int L) {
+  const int K = !byte_genome && 2LL * n >= kFullThreads ? 2 : 4;
+  const int CPL = (2 * HW + K) / K;
+  return Smem(L, K * CPL).bytes(kThreads / K) <= (size_t)kMaxSmem;
+}
+
+// Compiled half-widths 8, 16 and 32 where a full block fits; every other
+// hw from 1 to 271, and long reads, on the RT body of HW' = 16, 32 or
+// 271 (27 compiled kernels and 16 RT ones, B1 and B1' together).
 template <class Win>
 int dispatch(const Win& src, const void* reads, const void* lengths,
              void* scores, void* d0, void* d1, void* ung, int n, int L,
@@ -808,19 +908,31 @@ int dispatch(const Win& src, const void* reads, const void* lengths,
   const auto* ln = (const int32_t*)lengths;
   const Outs out{(int32_t*)scores, (int32_t*)d0, (int32_t*)d1,
                  (int32_t*)ung};
-  switch (hw) {
-    case 8:
-      return launch_lanes<8>(clip != 0, s, src, r, ln, out, n, L, match,
-                             mismatch, gap_open, gap_extend, clip_open);
-    case 16:
-      return launch_lanes<16>(clip != 0, s, src, r, ln, out, n, L, match,
-                              mismatch, gap_open, gap_extend, clip_open);
-    case 32:
-      return launch_lanes<32>(clip != 0, s, src, r, ln, out, n, L, match,
-                              mismatch, gap_open, gap_extend, clip_open);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const bool c = clip != 0;
+  const bool bg = Win::kByteGenome;
+  if (hw == 8 && full_block_fits<8>(bg, n, L))
+    return launch_lanes<8>(c, s, src, r, ln, out, n, L, match, mismatch,
+                           gap_open, gap_extend, clip_open);
+  if (hw == 16 && full_block_fits<16>(bg, n, L))
+    return launch_lanes<16>(c, s, src, r, ln, out, n, L, match, mismatch,
+                            gap_open, gap_extend, clip_open);
+  if (hw == 32 && full_block_fits<32>(bg, n, L))
+    return launch_lanes<32>(c, s, src, r, ln, out, n, L, match, mismatch,
+                            gap_open, gap_extend, clip_open);
+  if (hw < 1) return (int)cudaErrorInvalidValue;
+  if (hw <= 16)
+    return launch_mode<16, 4, true>(c, s, src, r, ln, out, n, L, hw, match,
+                                    mismatch, gap_open, gap_extend,
+                                    clip_open);
+  if (hw <= 32)
+    return launch_mode<32, 4, true>(c, s, src, r, ln, out, n, L, hw, match,
+                                    mismatch, gap_open, gap_extend,
+                                    clip_open);
+  if (hw <= 271)
+    return launch_mode<271, 32, true>(c, s, src, r, ln, out, n, L, hw, match,
+                                      mismatch, gap_open, gap_extend,
+                                      clip_open);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

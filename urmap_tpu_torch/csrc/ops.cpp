@@ -8,7 +8,7 @@
 // where the launch was refused. The operators are implemented for the CUDA
 // key only: a CPU tensor has no kernel and the dispatcher raises. A value
 // the kernels do not take (a dtype, a shape, a band half-width without a
-// compiled kernel) raises ValueError.
+// kernel) raises ValueError.
 //
 // No pybind, no Python.h: the library is loaded with torch.ops.load_library
 // and the wrappers in kernels/*.py call torch.ops.urmap.<name>.
@@ -87,42 +87,77 @@ void require_dp(const Tensor& windows, const Tensor& reads,
                     reads.sizes(), ", lengths ", lengths.sizes());
 }
 
-std::tuple<Tensor, Tensor, Tensor> seed_slots(const Tensor& rpacked,
-                                              const Tensor& rnplane,
-                                              const Tensor& lengths,
-                                              int64_t L, int64_t k, int64_t q,
-                                              int64_t slot_bits) {
-  require(rpacked, "rpacked", at::kInt, 2);
-  require(rnplane, "rnplane", at::kInt, 2);
+// The seed front: (rpacked2, rnplane2 int32[2B, nw], offs int32[2B, Q],
+// valid bool[2B, Q], start int64[2B, Q], cnt int32[2B, Q]). `a`, `b`:
+// the upload blocks (uint8) or the forward word planes (int32 [B, nw]).
+// `obase` given: `offsets` is the packed row128 table.
+std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor> seed_front(
+    const Tensor& a, const Tensor& b, const Tensor& lengths, int64_t L,
+    int64_t k, int64_t q, int64_t slot_bits, const Tensor& offsets,
+    const std::optional<Tensor>& obase, int64_t cnt_bits,
+    int64_t block_bits) {
+  const bool upload = a.scalar_type() == at::kByte;
+  const int64_t nw = (L + 15) / 16;
+  require(a, "a", upload ? at::kByte : at::kInt, 2);
+  require(b, "b", upload ? at::kByte : at::kInt, 2);
   require(lengths, "lengths", at::kInt, 1);
-  same_device(rpacked, rnplane, "rnplane");
-  same_device(rpacked, lengths, "lengths");
-  const int64_t n = rpacked.size(0), nw = rpacked.size(1);
-  TORCH_CHECK_VALUE(L >= k && k >= 1 && k <= 32 && L <= 16 * nw &&
-                        slot_bits >= 1 && slot_bits <= 32 && q >= 1,
-                    "seed_slots: unsupported L=", L, " k=", k, " nw=", nw,
-                    " q=", q, " slot_bits=", slot_bits);
-  TORCH_CHECK_VALUE(rnplane.sizes() == rpacked.sizes(), "rnplane: shape ",
-                    rnplane.sizes(), " != ", rpacked.sizes());
-  TORCH_CHECK_VALUE(lengths.size(0) == n, "lengths: one per read");
-  const c10::cuda::CUDAGuard guard(rpacked.device());
-  Tensor slots = at::empty({n, q}, like(rpacked, at::kInt));
-  Tensor offs = at::empty({n, q}, like(rpacked, at::kInt));
-  Tensor valid = at::empty({n, q}, like(rpacked, at::kBool));
-  launched(urmap_seed_slots(rpacked.data_ptr(), rnplane.data_ptr(),
-                            lengths.data_ptr(), slots.data_ptr(),
-                            offs.data_ptr(), valid.data_ptr(), (int)n,
-                            (int)nw, (int)L, (int)k, (int)q, (int)slot_bits,
-                            stream_of(rpacked)),
-           "urmap_seed_slots");
-  return {slots, offs, valid};
+  require(offsets, "offsets", at::kInt, 1);
+  same_device(a, b, "b");
+  same_device(a, lengths, "lengths");
+  same_device(a, offsets, "offsets");
+  const int64_t B = a.size(0);
+  TORCH_CHECK_VALUE(L >= k && k >= 1 && k <= 32 && slot_bits >= 1 &&
+                        slot_bits <= 31 && q >= 1,
+                    "seed_front: unsupported L=", L, " k=", k, " q=", q,
+                    " slot_bits=", slot_bits);
+  TORCH_CHECK_VALUE(b.size(0) == B && lengths.size(0) == B &&
+                        (upload || (a.size(1) == nw && b.size(1) == nw)),
+                    "seed_front: a ", a.sizes(), ", b ", b.sizes(),
+                    ", lengths ", lengths.sizes(), " (", nw, " words)");
+  const int64_t slots = int64_t{1} << slot_bits;
+  if (obase.has_value()) {
+    require(*obase, "obase", at::kInt, 1);
+    same_device(a, *obase, "obase");
+    TORCH_CHECK_VALUE(cnt_bits >= 1 && cnt_bits <= 16 && block_bits >= 0 &&
+                          block_bits <= 31 &&
+                          2 * offsets.size(0) >= slots &&
+                          obase->size(0) >=
+                              ((slots - 1) >> block_bits) + 1,
+                      "seed_front: packed offsets ", offsets.sizes(),
+                      ", obase ", obase->sizes(), " for 2^", slot_bits,
+                      " slots (cnt_bits ", cnt_bits, ", block_bits ",
+                      block_bits, ")");
+  } else {
+    TORCH_CHECK_VALUE(offsets.size(0) >= slots + 1, "seed_front: offsets ",
+                      offsets.sizes(), " for 2^", slot_bits, " slots");
+  }
+  const c10::cuda::CUDAGuard guard(a.device());
+  Tensor rp2 = at::empty({2 * B, nw}, like(a, at::kInt));
+  Tensor rn2 = at::empty({2 * B, nw}, like(a, at::kInt));
+  Tensor offs = at::empty({2 * B, q}, like(a, at::kInt));
+  Tensor valid = at::empty({2 * B, q}, like(a, at::kBool));
+  Tensor start = at::empty({2 * B, q}, like(a, at::kLong));
+  Tensor cnt = at::empty({2 * B, q}, like(a, at::kInt));
+  launched(urmap_seed_front(
+               upload ? a.data_ptr() : nullptr,
+               upload ? b.data_ptr() : nullptr, (int)a.size(1),
+               (int)b.size(1), upload ? nullptr : a.data_ptr(),
+               upload ? nullptr : b.data_ptr(), lengths.data_ptr(),
+               offsets.data_ptr(),
+               obase.has_value() ? obase->data_ptr() : nullptr,
+               (int)cnt_bits, (int)block_bits, rp2.data_ptr(),
+               rn2.data_ptr(), offs.data_ptr(), valid.data_ptr(),
+               start.data_ptr(), cnt.data_ptr(), (int)B, (int)nw, (int)L,
+               (int)k, (int)q, (int)slot_bits, stream_of(a)),
+           "urmap_seed_front");
+  return {rp2, rn2, offs, valid, start, cnt};
 }
 
 std::tuple<Tensor, Tensor> vote(const Tensor& cand, int64_t v) {
   require(cand, "cand", at::kInt, 2);
   const int64_t n = cand.size(0), m = cand.size(1);
-  TORCH_CHECK_VALUE(m >= 1 && m <= 128 && v >= 1 && v <= m,
-                    "vote: unsupported M=", m, ", V=", v, " (M <= 128)");
+  TORCH_CHECK_VALUE(m >= 1 && m <= 4096 && v >= 1 && v <= m,
+                    "vote: unsupported M=", m, ", V=", v, " (M <= 4096)");
   const c10::cuda::CUDAGuard guard(cand.device());
   Tensor top = at::empty({n, v}, cand.options());
   Tensor votes = at::empty({n, v}, cand.options());
@@ -136,9 +171,8 @@ std::tuple<Tensor, Tensor, Tensor, Tensor> banded_dp(
     const Tensor& windows, const Tensor& reads, const Tensor& lengths,
     int64_t hw, int64_t match, int64_t mismatch, int64_t gap_open,
     int64_t gap_extend, std::optional<int64_t> clip_open) {
-  TORCH_CHECK_VALUE(hw == 8 || hw == 16 || hw == 32,
-                    "banded_dp: no kernel for hw=", hw,
-                    " (compiled: 8, 16, 32)");
+  TORCH_CHECK_VALUE(hw >= 1 && hw <= 271, "banded_dp: no kernel for hw=",
+                    hw, " (1 <= hw <= 271)");
   require_dp(windows, reads, lengths, hw, "banded_dp");
   const int64_t n = reads.size(0), L = reads.size(1);
   const c10::cuda::CUDAGuard guard(windows.device());
@@ -160,9 +194,9 @@ std::tuple<Tensor, Tensor, Tensor, Tensor> banded_semiglobal(
     const Tensor& genome, const Tensor& cand_starts, const Tensor& reads,
     const Tensor& lengths, int64_t hw, int64_t match, int64_t mismatch,
     int64_t gap_open, int64_t gap_extend, std::optional<int64_t> clip_open) {
-  TORCH_CHECK_VALUE(hw == 8 || hw == 16 || hw == 32,
+  TORCH_CHECK_VALUE(hw >= 1 && hw <= 271,
                     "banded_semiglobal: no kernel for hw=", hw,
-                    " (compiled: 8, 16, 32)");
+                    " (1 <= hw <= 271)");
   require(genome, "genome", at::kByte, 1);
   require(cand_starts, "cand_starts", at::kInt, 1);
   require(reads, "reads", at::kByte, 2);
@@ -197,8 +231,9 @@ std::tuple<Tensor, Tensor, Tensor> tb_dops(
     const Tensor& windows, const Tensor& reads, const Tensor& lengths,
     int64_t hw, int64_t match, int64_t mismatch, int64_t gap_open,
     int64_t gap_extend) {
-  TORCH_CHECK_VALUE(hw == 8 || hw == 16, "tb_dops: no kernel for hw=", hw,
-                    " (compiled: 8, 16)");
+  TORCH_CHECK_VALUE(hw >= 1 && hw <= 31, "tb_dops: no kernel for hw=", hw,
+                    ": a dops record holds the deletion run in 6 bits "
+                    "(d <= 2 hw), so 1 <= hw <= 31");
   require_dp(windows, reads, lengths, hw, "tb_dops");
   const int64_t n = reads.size(0), L = reads.size(1);
   const int64_t dwp = ((L + 3) / 4 + 7) / 8 * 8;
@@ -220,8 +255,8 @@ std::tuple<Tensor, Tensor, Tensor> tb_bits(
     const Tensor& windows, const Tensor& reads, const Tensor& lengths,
     int64_t hw, int64_t match, int64_t mismatch, int64_t gap_open,
     int64_t gap_extend) {
-  TORCH_CHECK_VALUE(hw == 8 || hw == 16, "tb_bits: no kernel for hw=", hw,
-                    " (compiled: 8, 16)");
+  TORCH_CHECK_VALUE(hw >= 1 && hw <= 271, "tb_bits: no kernel for hw=",
+                    hw, " (1 <= hw <= 271)");
   require_dp(windows, reads, lengths, hw, "tb_bits");
   const int64_t n = reads.size(0), L = reads.size(1);
   const int64_t nwords = (L + 7) / 8 * ((2 * hw + 1 + 7) / 8 * 8);
@@ -342,8 +377,9 @@ Tensor window_mismatches(const Tensor& ginter, int64_t base_off,
 }  // namespace
 
 TORCH_LIBRARY(urmap, m) {
-  m.def("seed_slots(Tensor rpacked, Tensor rnplane, Tensor lengths, int L, "
-        "int k, int q, int slot_bits) -> (Tensor, Tensor, Tensor)");
+  m.def("seed_front(Tensor a, Tensor b, Tensor lengths, int L, int k, "
+        "int q, int slot_bits, Tensor offsets, Tensor? obase, int cnt_bits, "
+        "int block_bits) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
   m.def("vote(Tensor cand, int v) -> (Tensor, Tensor)");
   m.def("banded_dp(Tensor windows, Tensor reads, Tensor lengths, int hw, "
         "int match, int mismatch, int gap_open, int gap_extend, "
@@ -369,7 +405,7 @@ TORCH_LIBRARY(urmap, m) {
 }
 
 TORCH_LIBRARY_IMPL(urmap, CUDA, m) {
-  m.impl("seed_slots", &seed_slots);
+  m.impl("seed_front", &seed_front);
   m.impl("vote", &vote);
   m.impl("banded_dp", &banded_dp);
   m.impl("banded_semiglobal", &banded_semiglobal);

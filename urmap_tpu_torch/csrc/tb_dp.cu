@@ -11,39 +11,40 @@
 // strictly beats opening). Codes of unreachable cells come from the same
 // additions on NEG as the reference's, with no saturation.
 //
-// B6 (tb_dops_kernel) then walks the codes backwards from (lengths - 1,
-// bend), bend the first band cell holding the maximum of row lengths - 1,
-// and emits one record per read row, rec_i = d | op << 6 (op 1 =
-// insertion, d = deletions after row i), rec_i at byte i % 4 of word i / 4
-// of dops[DWP, N], and walk_ok = the walk ended at b == hw in state H and
-// lengths > 0. Cells outside the band read as code 0, as the reference's
-// one-hot selects give. It runs the rows below the read's length only,
-// since the walk reads no later row. A length above L has no last row:
-// score 0, and the walk starts at band cell 0 with every row live, as the
-// reference's does.
+// Both kernels share one forward pass (`forward` below); they differ in
+// what they keep of it:
+//   - B6 (tb_dops_kernel) keeps the codes in shared memory and walks them
+//     backwards from (lengths - 1, bend), bend the first band cell holding
+//     the maximum of row lengths - 1, emitting one record per read row,
+//     rec_i = d | op << 6 (op 1 = insertion, d = deletions after row i),
+//     rec_i at byte i % 4 of word i / 4 of dops[DWP, N], and walk_ok = the
+//     walk ended at b == hw in state H and lengths > 0. Cells outside the
+//     band read as code 0, as the reference's one-hot selects give. It
+//     runs the rows below the read's length only, since the walk reads no
+//     later row. A length above L has no last row: score 0, and the walk
+//     starts at band cell 0 with every row live, as the reference's does.
+//     hw <= 31: a record holds the deletion run in 6 bits (d <= 2 hw).
+//   - B7 (tb_bits_kernel) writes the codes out, int32 [NWORDS, N]: 8 read
+//     rows per word, row i of group g at nibble hi - 1 - i (hi =
+//     min(8g + 8, L)); band cell b of group g is row g * WP + b (WP = W
+//     rounded up to 8, pad rows zero). It runs all L rows whatever the
+//     length and gives score and bend. The mapping path never calls it.
 //
-// B7 (tb_bits_kernel) keeps the codes as its output, int32 [NWORDS, N]: 8
-// read rows per word, row i of group g at nibble hi - 1 - i (hi =
-// min(8g + 8, L)); band cell b of group g is row g * WP + b (WP = W
-// rounded up to 8, pad rows zero). It runs all L rows whatever the length
-// and gives score and bend. The mapping path never calls it.
-//
-// What bounds B6 on the card: integer ALU work, ~15 instructions on the
+// What bounds them on the card: integer ALU work, ~15 instructions on the
 // int32 pipe per band cell and read row (E and the ee compare 2; the
 // substitution 2; T 1; the running max and H 2; the fe compare 1; hc 4;
 // the nibble 3) over 33 x 160 cells, against 356 bytes in and 160 bytes of
 // records out per winner. But a batch has 2,048 winners (128 at the
 // least), and with one thread per winner that is 64 warps on a card of 528
-// warp schedulers, each thread a chain of ~100k dependent instructions
-// followed by 160 dependent loads from a scratch tensor in global memory:
+// warp schedulers, each thread a chain of ~100k dependent instructions:
 // latency, not throughput, with seven of eight schedulers idle. So the
 // design spreads ONE winner over a group of G lanes of a warp, the band
-// across the lanes, CPL = ceil(W / G) neighbouring cells per lane. G = 8
-// (5 cells a lane at W = 33, four winners a warp): a row costs ~65
-// instructions a lane and ~25 more a cell, so fewer lanes mean fewer
-// instructions per winner. Measured on an H100 against 16 and 32 lanes,
-// 8 tied within 5% at 128 and 2,048 winners and won at 16,384 (0.238 ms
-// against 0.274 and 0.366), so 8 is the one variant compiled.
+// across the lanes, CPL neighbouring cells per lane. G = 8 (5 cells a
+// lane at W = 33, four winners a warp): a row costs ~65 instructions a
+// lane and ~25 more a cell, so fewer lanes mean fewer instructions per
+// winner. Measured on an H100 against 16 and 32 lanes, 8 tied within 5%
+// at 128 and 2,048 winners and won at 16,384 (0.238 ms against 0.274 and
+// 0.366).
 //   - per read row, H and E of cell b + 1 come from the next lane by
 //     __shfl_down_sync; the deletion chain, which serialises along the
 //     band, is the running maximum max_{c<b}(T[c] - (c + 1) * ext): a
@@ -53,23 +54,37 @@
 //   - the shuffles name the whole warp and move within segments of G
 //     lanes, and the winners of a warp step through the rows together,
 //     to the longest one's last row;
-//   - cells past the band's end (G * CPL > W) are computed and never
-//     read: only cell W - 1 looks at a higher cell, and takes NEG there;
 //   - window and read bytes are loaded once by the group, neighbouring
 //     lanes neighbouring bytes, into shared memory;
-//   - the per-cell codes (8 rows per word as in B7's layout, word
-//     g * G * CPL + b for band cell b) stay in shared memory, ~3-5 KB
-//     per winner; the wrapper allocates no scratch;
-//   - lane 0 of the group walks back through shared memory, keeping the
+//   - B6: the per-cell codes (8 rows per word as in B7's layout, word
+//     g * G * CPL + b for band cell b) stay in shared memory, ~3-5 KB per
+//     winner; lane 0 of the group walks back through them, keeping the
 //     word of its band cell in a register while the path stays on the
 //     diagonal; a group of 8 rows whose codes on the path are all
 //     diagonal is taken in one step (most of a read: the walk of a clean
-//     read is 20 steps, not 160);
-//   - the records are gathered in shared memory and written by the whole
-//     block, the winners of a block side by side along N.
+//     read is 20 steps, not 160); the records are gathered in shared
+//     memory and written by the whole block, the winners of a block side
+//     by side along N;
+//   - B7: each lane stores its cells' words of a group of 8 rows as the
+//     group ends; no codes in shared memory.
+// Band half-widths. A variant is compiled for a capacity of G * CPL band
+// cells. At hw 8 and 16 (HWC, the band's cells known to the compiler) the
+// cells past the band's end are computed and never read: only cell W - 1
+// looks at a higher cell, and takes NEG there. Any other hw runs on the
+// smallest variant that holds W = 2 hw + 1 cells with hw a runtime value:
+// the band is cells 0 .. W - 1 and every cell above it is set back to NEG
+// (H and E) after each row, so cell W - 1 reads exactly the reference's
+// NEG fill, and the chain, which only moves up the band, carries nothing
+// down into it. Capacities: 24 cells (hw <= 11), 40 (<= 19), 72 (<= 35)
+// at 8 lanes; B7 also 544 at 32 lanes (hw <= 271).
+// Winners per block: 16 (8 lanes) or 4 (32 lanes), halved at launch until
+// their shared memory fits the 227 KB a block may hold; a block keeps its
+// 128 threads and the slots past the winners stay idle. One winner a
+// block is the limit (kernels/tb_dp.py max_read_len counts the same
+// bytes): B6 at hw 16 takes ~23 bytes a read base, ~10,000 bases.
 // What is left: at 2,048 winners the card holds one warp per scheduler,
 // and a row is ~185 instructions with five dependent shuffles among them,
-// so the kernel runs at one warp's pace (~0.25 us a row). A wavefront over
+// so the kernels run at one warp's pace (~0.25 us a row). A wavefront over
 // anti-diagonals (a lane per read row, no scan) was built and measured
 // slower here at 128, 2,048 and 16,384 winners: a step of one cell still
 // takes ~60 instructions.
@@ -84,25 +99,33 @@
 namespace {
 
 constexpr int kNeg = -(1 << 20);
-constexpr int kDopsThreads = 128;  // threads per block of tb_dops_kernel
-constexpr int kDopsLanes = 8;      // lanes of a warp per winner (G)
+constexpr int kThreads = 128;         // threads per block of both kernels
+constexpr int kMaxSmem = 227 * 1024;  // an H100 block's most
+constexpr unsigned kWarp = 0xFFFFFFFFu;
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// Shared memory of tb_dops_kernel, per block of WPB = kDopsThreads / G
-// winners, in 32-bit words: codes, records, window bytes, read bytes.
-struct DopsSmem {
+// One compiled variant: G lanes a winner, CPL band cells a lane, HWC the
+// compiled half-width or 0 (hw at run time, W <= G * CPL).
+template <int G_, int CPL_, int HWC_>
+struct Band {
+  static constexpr int G = G_, CPL = CPL_, HWC = HWC_;
+  static constexpr int WS = G * CPL;          // cells of the variant
+  static constexpr int SLOTS = kThreads / G;  // winners a block at most
+  static_assert(HWC == 0 || 2 * HWC + 1 <= WS, "band wider than the lanes");
+};
+
+// Shared memory of a block, per winner, in 32-bit words: B6's codes and
+// records (none for B7), the window bytes and the read bytes.
+struct TbSmem {
   int code_words, rec_words, win_words, read_words;
-  __host__ __device__ DopsSmem(int L, int hw) {
-    constexpr int G = kDopsLanes;
-    const int W = 2 * hw + 1;
-    const int ws = G * ((W + G - 1) / G);
-    code_words = (L + 7) / 8 * ws;
-    rec_words = round_up((L + 3) / 4, 8);
-    // a cell past the band's end reads up to ws - W bytes past the window
-    win_words = round_up(L + 2 * hw + ws - W, 4) / 4;
+  __host__ __device__ TbSmem(int L, int ws, bool dops) {
+    code_words = dops ? (L + 7) / 8 * ws : 0;
+    rec_words = dops ? round_up((L + 3) / 4, 8) : 0;
+    // a cell past the band's end reads up to ws - 1 bytes past row i
+    win_words = round_up(L + ws - 1, 4) / 4;
     read_words = round_up(L, 4) / 4;
   }
   __host__ __device__ int words_per_winner() const {
@@ -110,68 +133,49 @@ struct DopsSmem {
   }
 };
 
-template <int HW>
-__global__ void __launch_bounds__(kDopsThreads)
-    tb_dops_kernel(const uint8_t* __restrict__ win,
-                   const uint8_t* __restrict__ reads,
-                   const int32_t* __restrict__ lengths,
-                   int32_t* __restrict__ score_out,
-                   uint8_t* __restrict__ ok_out, uint32_t* __restrict__ dops,
-                   int n, int L, int match, int mismatch, int gap_open,
-                   int gap_extend) {
-  constexpr int G = kDopsLanes;
-  constexpr int W = 2 * HW + 1;
-  constexpr int CPL = (W + G - 1) / G;  // band cells per lane
-  constexpr int WS = G * CPL;           // code words per group of 8 rows
-  constexpr int WPB = kDopsThreads / G;
-  constexpr int K_LAST = (W - 1) % CPL;  // where cell W - 1 lives
-  constexpr int LANE_LAST = (W - 1) / CPL;
-  extern __shared__ uint32_t smem[];
+// Winners a block for these shapes: SLOTS halved until they fit, 0 if
+// one winner does not.
+template <class Bd>
+int winners_per_block(int L, bool dops) {
+  const size_t per = 4 * (size_t)TbSmem(L, Bd::WS, dops).words_per_winner();
+  for (int w = Bd::SLOTS; w >= 1; w >>= 1)
+    if ((size_t)w * per <= (size_t)kMaxSmem) return w;
+  return 0;
+}
 
-  const int slot = threadIdx.x / G;
-  const int lane = threadIdx.x % G;
-  const int t = blockIdx.x * WPB + slot;
-  // The shuffles name the whole warp and move within segments of G
-  // lanes, and the warp's winners step through the rows together: with
-  // a mask per group the compiler checks the mask before every row's
-  // shuffles (MATCH.ANY), which costs more than the rows a shorter read
-  // waits for a longer one.
-  constexpr unsigned kWarp = 0xFFFFFFFFu;
-  const DopsSmem lay(L, HW);
-  // records of all winners first ([word][slot], the order they leave in),
-  // then each winner's codes, window and read
-  uint32_t* recs = smem;
-  uint32_t* codes = smem + WPB * lay.rec_words +
-                    slot * (lay.code_words + lay.win_words + lay.read_words);
-  uint8_t* win_s = (uint8_t*)(codes + lay.code_words);
-  uint8_t* read_s = win_s + 4 * lay.win_words;
-
-  const int wlen = L + 2 * HW;
-  const int len = t < n ? lengths[t] : 0;
-  const int rows = min(max(len, 0), L);
-  if (t < n) {
-    const uint8_t* w = win + (size_t)t * wlen;
-    const uint8_t* r = reads + (size_t)t * L;
-    for (int x = lane; x < 4 * lay.win_words; x += G)
-      win_s[x] = x < wlen ? w[x] : 0;
-    for (int x = lane; x < rows; x += G) read_s[x] = r[x];
-  }
-  for (int x = lane; x < lay.rec_words; x += G) recs[x * WPB + slot] = 0u;
-  __syncwarp();
-
-  // ---- forward pass: this lane's cells b0 .. b0 + CPL - 1 ----
+// The forward pass of one winner, run by its G lanes (lane = this lane's
+// place in the group). win_s / read_s: the winner's bytes in shared
+// memory. The warp runs to the largest `nrows` of its winners; each
+// winner's codes of rows below its own `nrows` go to `store(g, k, word)`
+// (band cell lane * CPL + k of group g), a group at its last row, the
+// nibbles of rows past nrows zero. `last`: the row whose first maximum
+// becomes (best, bend), or -1 for none (then 0 at the centre). Returns
+// with (best, bend) the group's.
+template <class Bd, class Store>
+__device__ __forceinline__ void forward(const uint8_t* win_s,
+                                        const uint8_t* read_s, int L, int hw,
+                                        int nrows, int last, int lane,
+                                        int match, int mismatch, int gap_open,
+                                        int gap_extend, int& best_out,
+                                        int& bend_out, Store store) {
+  constexpr int G = Bd::G, CPL = Bd::CPL, HWC = Bd::HWC;
+  const int W = HWC ? 2 * HWC + 1 : 2 * hw + 1;
+  const int centre = HWC ? HWC : hw;
+  // the compiled band's last cell: where it lives
+  constexpr int K_LAST = HWC ? (2 * HWC) % CPL : 0;
+  constexpr int LANE_LAST = HWC ? (2 * HWC) / CPL : -1;
   const int b0 = lane * CPL;
   int H[CPL], E[CPL];
   uint32_t acc[CPL];
 #pragma unroll
   for (int k = 0; k < CPL; ++k) {
-    H[k] = b0 + k == HW ? 0 : kNeg;
+    H[k] = b0 + k == centre ? 0 : kNeg;
     E[k] = kNeg;
     acc[k] = 0u;
   }
   // this lane's first maximum over its cells of the last row
   int best = INT_MIN, bend = W;
-  const int warp_rows = __reduce_max_sync(kWarp, rows);
+  const int warp_rows = __reduce_max_sync(kWarp, nrows);
   for (int i = 0; i < warp_rows; ++i) {
     const int rd = read_s[i];  // past this winner's rows: computed, unused
     int hnext = __shfl_down_sync(kWarp, H[0], 1, G);
@@ -184,7 +188,7 @@ __global__ void __launch_bounds__(kDopsThreads)
     for (int k = 0; k < CPL; ++k) {
       int hb = k + 1 < CPL ? H[k + 1] : hnext;
       int eb = k + 1 < CPL ? E[k + 1] : enext;
-      if (k == K_LAST && lane == LANE_LAST) hb = eb = kNeg;  // cell W - 1
+      if (HWC && k == K_LAST && lane == LANE_LAST) hb = eb = kNeg;
       const int eo = hb + gap_open;
       const int en = max(eo, eb + gap_extend);
       code[k] = eo != en ? 4u : 0u;
@@ -217,8 +221,12 @@ __global__ void __launch_bounds__(kDopsThreads)
       hprev = hn[k];
       H[k] = hn[k];
       acc[k] = (acc[k] << 4) | code[k];
+      if (!HWC && b0 + k >= W) {  // past the band: the NEG fill again
+        H[k] = kNeg;
+        E[k] = kNeg;
+      }
     }
-    if (i + 1 == rows) {  // the last row: this lane's first maximum
+    if (i == last) {  // the last row: this lane's first maximum
 #pragma unroll
       for (int k = 0; k < CPL; ++k) {
         if (b0 + k < W && H[k] > best) {
@@ -227,13 +235,13 @@ __global__ void __launch_bounds__(kDopsThreads)
         }
       }
     }
-    if (i < rows && ((i & 7) == 7 || i + 1 == rows)) {
-      // rows cut off after the read's end leave their nibbles zero
+    if (i < nrows && ((i & 7) == 7 || i + 1 == nrows)) {
+      // rows cut off after nrows leave their nibbles zero
       const int g = i >> 3;
       const int cut = 4 * (min(8 * g + 8, L) - (i + 1));
 #pragma unroll
       for (int k = 0; k < CPL; ++k) {
-        codes[g * WS + b0 + k] = acc[k] << cut;
+        store(g, k, acc[k] << cut);
         acc[k] = 0u;
       }
     }
@@ -248,14 +256,79 @@ __global__ void __launch_bounds__(kDopsThreads)
       bend = ob;
     }
   }
-  if (len < 1 || len > L) {  // no row is the last: the forced start
+  if (last < 0) {  // no row is the last: the forced start
     best = 0;
-    bend = HW;
+    bend = centre;
   }
+  best_out = best;
+  bend_out = bend;
+}
+
+// The winner of slot `slot` of this block: its bytes into shared memory
+// (window zero past its end, read bytes below `rows`), by its G lanes.
+__device__ __forceinline__ void stage_winner(uint8_t* win_s, uint8_t* read_s,
+                                             const TbSmem& lay,
+                                             const uint8_t* win,
+                                             const uint8_t* reads, long long t,
+                                             int L, int hw, int rows,
+                                             int lane, int G) {
+  const int wlen = L + 2 * hw;
+  const uint8_t* w = win + t * wlen;
+  const uint8_t* r = reads + t * L;
+  for (int x = lane; x < 4 * lay.win_words; x += G)
+    win_s[x] = x < wlen ? w[x] : 0;
+  for (int x = lane; x < rows; x += G) read_s[x] = r[x];
+}
+
+template <class Bd>
+__global__ void __launch_bounds__(kThreads)
+    tb_dops_kernel(const uint8_t* __restrict__ win,
+                   const uint8_t* __restrict__ reads,
+                   const int32_t* __restrict__ lengths,
+                   int32_t* __restrict__ score_out,
+                   uint8_t* __restrict__ ok_out, uint32_t* __restrict__ dops,
+                   int n, int L, int hw, int wpb, int match, int mismatch,
+                   int gap_open, int gap_extend) {
+  constexpr int G = Bd::G, WS = Bd::WS;
+  extern __shared__ uint32_t smem[];
+  const int W = Bd::HWC ? 2 * Bd::HWC + 1 : 2 * hw + 1;
+  const int centre = Bd::HWC ? Bd::HWC : hw;
+  const int slot = threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+  // slots past the block's winners run along with an empty read (the
+  // shuffles name the whole warp) over slot 0's bytes and write nothing
+  const bool live_slot = slot < wpb;
+  const long long t = (long long)blockIdx.x * wpb + slot;
+  const bool act = live_slot && t < n;
+  const TbSmem lay(L, WS, true);
+  // records of all winners first ([word][slot], the order they leave in),
+  // then each winner's codes, window and read
+  uint32_t* recs = smem;
+  uint32_t* codes = smem + wpb * lay.rec_words +
+                    (live_slot ? slot : 0) *
+                        (lay.code_words + lay.win_words + lay.read_words);
+  uint8_t* win_s = (uint8_t*)(codes + lay.code_words);
+  uint8_t* read_s = win_s + 4 * lay.win_words;
+
+  const int len = act ? lengths[t] : 0;
+  const int rows = min(max(len, 0), L);
+  if (act) stage_winner(win_s, read_s, lay, win, reads, t, L, hw, rows, lane,
+                        G);
+  if (live_slot)
+    for (int x = lane; x < lay.rec_words; x += G) recs[x * wpb + slot] = 0u;
+  __syncwarp();
+
+  int best, bend;
+  forward<Bd>(win_s, read_s, L, hw, rows,
+              len >= 1 && len <= L ? len - 1 : -1, lane, match, mismatch,
+              gap_open, gap_extend, best, bend,
+              [&](int g, int k, uint32_t word) {
+                codes[g * WS + lane * Bd::CPL + k] = word;
+              });
   __syncwarp();
 
   // ---- backward walk, lane 0 of the group, over shared memory ----
-  if (lane == 0 && t < n) {
+  if (lane == 0 && act) {
     auto word = [&](int g, int bb) -> uint32_t {
       return (bb < 0 || bb >= W) ? 0u : codes[g * WS + bb];
     };
@@ -309,172 +382,168 @@ __global__ void __launch_bounds__(kDopsThreads)
       }  // else a diagonal step: record 0, b and st stay
       recw = recw * 256u + rec;
       if ((i & 3) == 0) {
-        recs[(i >> 2) * WPB + slot] = recw;
+        recs[(i >> 2) * wpb + slot] = recw;
         recw = 0u;
       }
       --i;
     }
     score_out[t] = best;
-    ok_out[t] = (b == HW && st == 0 && len > 0) ? 1 : 0;
+    ok_out[t] = (b == centre && st == 0 && len > 0) ? 1 : 0;
   }
   __syncthreads();
   // the records leave with the block's winners side by side along N
-  const int first = blockIdx.x * WPB;
-  for (int x = threadIdx.x; x < lay.rec_words * WPB; x += kDopsThreads) {
-    const int tt = first + x % WPB;
-    if (tt < n) dops[(size_t)(x / WPB) * n + tt] = recs[x];
+  const long long first = (long long)blockIdx.x * wpb;
+  for (int x = threadIdx.x; x < lay.rec_words * wpb; x += kThreads) {
+    const long long tt = first + x % wpb;
+    if (tt < n) dops[(size_t)(x / wpb) * n + tt] = recs[x];
   }
 }
 
-template <int HW>
-__global__ void tb_bits_kernel(const uint8_t* __restrict__ win,
-                               const uint8_t* __restrict__ reads,
-                               const int32_t* __restrict__ lengths,
-                               int32_t* __restrict__ score_out,
-                               int32_t* __restrict__ bend_out,
-                               uint32_t* __restrict__ bits, int n, int L,
-                               int match, int mismatch, int gap_open,
-                               int gap_extend) {
-  // one thread per winner: the band's H, E, window bytes and the group's
-  // code words in registers (the band loops unroll), the deletion chain
-  // as a running max along the band; the store of a group is coalesced
-  // across the block (N is the fast axis)
-  constexpr int W = 2 * HW + 1;
-  constexpr int WP = (W + 7) / 8 * 8;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const int wlen = L + 2 * HW;
-  const uint8_t* w = win + (size_t)t * wlen;
-  const uint8_t* r = reads + (size_t)t * L;
-  const int len = lengths[t];
-  const int groups = (L + 7) / 8;
-  // the last band cell's E reads the fill value through both terms
-  const int eo_last = kNeg + gap_open;
-  const int e_last = max(eo_last, kNeg + gap_extend);
-  const uint32_t ee_last = eo_last != e_last ? 4u : 0u;
+template <class Bd>
+__global__ void __launch_bounds__(kThreads)
+    tb_bits_kernel(const uint8_t* __restrict__ win,
+                   const uint8_t* __restrict__ reads,
+                   const int32_t* __restrict__ lengths,
+                   int32_t* __restrict__ score_out,
+                   int32_t* __restrict__ bend_out,
+                   uint32_t* __restrict__ bits, int n, int L, int hw, int wpb,
+                   int match, int mismatch, int gap_open, int gap_extend) {
+  constexpr int G = Bd::G;
+  extern __shared__ uint32_t smem[];
+  const int W = Bd::HWC ? 2 * Bd::HWC + 1 : 2 * hw + 1;
+  const int WP = round_up(W, 8);
+  const int slot = threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+  const bool live_slot = slot < wpb;
+  const long long t = (long long)blockIdx.x * wpb + slot;
+  const bool act = live_slot && t < n;
+  const TbSmem lay(L, Bd::WS, false);
+  uint8_t* win_s = (uint8_t*)(smem + (live_slot ? slot : 0) *
+                                         (lay.win_words + lay.read_words));
+  uint8_t* read_s = win_s + 4 * lay.win_words;
+  const int len = act ? lengths[t] : 0;
+  if (act) stage_winner(win_s, read_s, lay, win, reads, t, L, hw, L, lane, G);
+  __syncwarp();
 
-  int H[W], E[W], wr[W];
-  uint32_t acc[W];
-#pragma unroll
-  for (int b = 0; b < W; ++b) {
-    H[b] = b == HW ? 0 : kNeg;
-    E[b] = kNeg;
-    wr[b] = w[b];
+  int best, bend;
+  forward<Bd>(win_s, read_s, L, hw, act ? L : 0,
+              len >= 1 && len <= L ? len - 1 : -1, lane, match, mismatch,
+              gap_open, gap_extend, best, bend,
+              [&](int g, int k, uint32_t word) {
+                // band cell b of group g is row g * WP + b, pad rows zero
+                const int b = lane * Bd::CPL + k;
+                if (b < WP)
+                  bits[(size_t)(g * WP + b) * n + t] = b < W ? word : 0u;
+              });
+  if (lane == 0 && act) {
+    score_out[t] = best;
+    bend_out[t] = bend;
   }
-  // the last row's cells stay the forced start when no row is the last
-  int best = 0, bend = HW;
-  for (int g = 0; g < groups; ++g) {
-    const int hi = min(8 * g + 8, L);
-#pragma unroll
-    for (int b = 0; b < W; ++b) acc[b] = 0;
-    for (int i = 8 * g; i < hi; ++i) {
-      const int rd = r[i];
-#pragma unroll
-      for (int b = 0; b < W - 1; ++b) {
-        const int eo = H[b + 1] + gap_open;
-        const int en = max(eo, E[b + 1] + gap_extend);
-        acc[b] = (acc[b] << 4) | (eo != en ? 4u : 0u);
-        E[b] = en;
-      }
-      acc[W - 1] = (acc[W - 1] << 4) | ee_last;
-      E[W - 1] = e_last;
-      // F[b] = max(NEG, max_{c<b}(T[c] - (c+1)*ext)) + open + b*ext
-      int run = kNeg, hprev = kNeg;
-#pragma unroll
-      for (int b = 0; b < W; ++b) {
-        const int diag = H[b] + (wr[b] == rd ? match : mismatch);
-        const int T = max(diag, E[b]);
-        const int F = run + gap_open + b * gap_extend;
-        run = max(run, T - (b + 1) * gap_extend);
-        const int hn = max(T, F);
-        const uint32_t hc = hn == diag ? 0u : (hn == E[b] ? 1u : 2u);
-        acc[b] |= hc | (hprev + gap_open != F ? 8u : 0u);
-        hprev = hn;
-        H[b] = hn;
-      }
-      if (i + 1 == len) {
-        best = H[0];
-        bend = 0;
-#pragma unroll
-        for (int b = 1; b < W; ++b) {
-          if (H[b] > best) {
-            best = H[b];
-            bend = b;
-          }
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < W - 1; ++b) wr[b] = wr[b + 1];
-      wr[W - 1] = i + W < wlen ? w[i + W] : 0;
-    }
-    uint32_t* dst = bits + (size_t)g * WP * n + t;
-#pragma unroll
-    for (int b = 0; b < W; ++b) dst[(size_t)b * n] = acc[b];
-#pragma unroll
-    for (int b = W; b < WP; ++b) dst[(size_t)b * n] = 0u;
-  }
-  score_out[t] = best;
-  bend_out[t] = bend;
 }
 
-template <int HW>
-int launch_dops(int n, cudaStream_t s, const uint8_t* win,
-                const uint8_t* reads, const int32_t* lengths, int32_t* score,
-                uint8_t* ok, uint32_t* dops, int L, int match, int mismatch,
-                int gap_open, int gap_extend) {
-  constexpr int WPB = kDopsThreads / kDopsLanes;
-  constexpr int kMaxSmem = 227 * 1024;  // an H100 block's most
+// Above 48 KB a kernel opts in, once per device and kernel: the attribute
+// is set to the most at the first such launch there and kept.
+template <class Kernel>
+int opt_in(Kernel kernel, size_t bytes, std::atomic<bool>* opted) {
   constexpr int kMaxDevices = 64;
-  const size_t bytes = 4 * (size_t)WPB * DopsSmem(L, HW).words_per_winner();
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const auto kernel = tb_dops_kernel<HW>;
-  if (bytes > 48 * 1024) {
-    // above 48 KB a kernel opts in, once per device: the attribute is set
-    // to the most at the first such launch there and kept
-    static std::atomic<bool> opted[kMaxDevices];
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return (int)err;
-    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-    if (!opted[dev].load(std::memory_order_acquire)) {
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-      if (err != cudaSuccess) return (int)err;
-      opted[dev].store(true, std::memory_order_release);
-    }
+    opted[dev].store(true, std::memory_order_release);
   }
-  kernel<<<(unsigned)((n + WPB - 1) / WPB), kDopsThreads, bytes, s>>>(
-      win, reads, lengths, score, ok, dops, n, L, match, mismatch, gap_open,
-      gap_extend);
+  return 0;
+}
+
+struct TbArgs {
+  const uint8_t* win;
+  const uint8_t* reads;
+  const int32_t* lengths;
+  int n, L, hw, match, mismatch, gap_open, gap_extend;
+  cudaStream_t s;
+};
+
+template <class Bd>
+int launch_dops(const TbArgs& a, int32_t* score, uint8_t* ok,
+                uint32_t* dops) {
+  static std::atomic<bool> opted[64];
+  const int wpb = winners_per_block<Bd>(a.L, true);
+  if (wpb == 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      4 * (size_t)wpb * TbSmem(a.L, Bd::WS, true).words_per_winner();
+  const auto kernel = tb_dops_kernel<Bd>;
+  const int err = opt_in(kernel, bytes, opted);
+  if (err) return err;
+  kernel<<<(unsigned)((a.n + wpb - 1) / wpb), kThreads, bytes, a.s>>>(
+      a.win, a.reads, a.lengths, score, ok, dops, a.n, a.L, a.hw, wpb,
+      a.match, a.mismatch, a.gap_open, a.gap_extend);
   return (int)cudaGetLastError();
+}
+
+template <class Bd>
+int launch_bits(const TbArgs& a, int32_t* score, int32_t* bend,
+                uint32_t* bits) {
+  static std::atomic<bool> opted[64];
+  const int wpb = winners_per_block<Bd>(a.L, false);
+  if (wpb == 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      4 * (size_t)wpb * TbSmem(a.L, Bd::WS, false).words_per_winner();
+  const auto kernel = tb_bits_kernel<Bd>;
+  const int err = opt_in(kernel, bytes, opted);
+  if (err) return err;
+  kernel<<<(unsigned)((a.n + wpb - 1) / wpb), kThreads, bytes, a.s>>>(
+      a.win, a.reads, a.lengths, score, bend, bits, a.n, a.L, a.hw, wpb,
+      a.match, a.mismatch, a.gap_open, a.gap_extend);
+  return (int)cudaGetLastError();
+}
+
+// The variants, smallest first; `fn` runs the first that takes hw (the
+// compiled half-widths first). B6 (DOPS) has no 32-lane variant: its
+// records stop at hw 31.
+template <bool DOPS, class Fn>
+int dispatch(int hw, Fn fn) {
+  if (hw == 8) return fn(Band<8, 3, 8>{});
+  if (hw == 16) return fn(Band<8, 5, 16>{});
+  const int W = 2 * hw + 1;
+  if (hw < 1) return (int)cudaErrorInvalidValue;
+  if (W <= 24) return fn(Band<8, 3, 0>{});
+  if (W <= 40) return fn(Band<8, 5, 0>{});
+  if (W <= 72) return fn(Band<8, 9, 0>{});
+  if constexpr (!DOPS) {
+    if (W <= 544) return fn(Band<32, 17, 0>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+TbArgs args_of(const void* win, const void* reads, const void* lengths,
+               int n, int L, int hw, int match, int mismatch, int gap_open,
+               int gap_extend, void* stream) {
+  return TbArgs{(const uint8_t*)win, (const uint8_t*)reads,
+                (const int32_t*)lengths, n, L, hw, match, mismatch,
+                gap_open, gap_extend, (cudaStream_t)stream};
 }
 
 }  // namespace
 
-// Band half-widths with a compiled kernel: 8 and 16 (the operator checks).
-// ok = walk_ok as bytes 0/1.
+// ok = walk_ok as bytes 0/1. hw 1-31 (the binding checks); L up to what
+// one winner a block holds (cudaErrorInvalidValue above).
 extern "C" int urmap_tb_dops(const void* win, const void* reads,
                              const void* lengths, void* score, void* ok,
                              void* dops, int n, int L, int hw, int match,
                              int mismatch, int gap_open, int gap_extend,
                              void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const cudaStream_t s = (cudaStream_t)stream;
-  const auto* w = (const uint8_t*)win;
-  const auto* r = (const uint8_t*)reads;
-  const auto* ln = (const int32_t*)lengths;
-  switch (hw) {
-    case 8:
-      return launch_dops<8>(n, s, w, r, ln, (int32_t*)score, (uint8_t*)ok,
-                            (uint32_t*)dops, L, match, mismatch, gap_open,
-                            gap_extend);
-    case 16:
-      return launch_dops<16>(n, s, w, r, ln, (int32_t*)score, (uint8_t*)ok,
-                             (uint32_t*)dops, L, match, mismatch, gap_open,
-                             gap_extend);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const TbArgs a = args_of(win, reads, lengths, n, L, hw, match, mismatch,
+                           gap_open, gap_extend, stream);
+  return dispatch<true>(hw, [&](auto bd) {
+    return launch_dops<decltype(bd)>(a, (int32_t*)score, (uint8_t*)ok,
+                                     (uint32_t*)dops);
+  });
 }
 
 extern "C" int urmap_tb_bits(const void* win, const void* reads,
@@ -483,24 +552,10 @@ extern "C" int urmap_tb_bits(const void* win, const void* reads,
                              int mismatch, int gap_open, int gap_extend,
                              void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 block(32);
-  const dim3 grid((unsigned)((n + 31) / 32));
-  switch (hw) {
-    case 8:
-      tb_bits_kernel<8><<<grid, block, 0, s>>>(
-          (const uint8_t*)win, (const uint8_t*)reads,
-          (const int32_t*)lengths, (int32_t*)score, (int32_t*)bend,
-          (uint32_t*)bits, n, L, match, mismatch, gap_open, gap_extend);
-      break;
-    case 16:
-      tb_bits_kernel<16><<<grid, block, 0, s>>>(
-          (const uint8_t*)win, (const uint8_t*)reads,
-          (const int32_t*)lengths, (int32_t*)score, (int32_t*)bend,
-          (uint32_t*)bits, n, L, match, mismatch, gap_open, gap_extend);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const TbArgs a = args_of(win, reads, lengths, n, L, hw, match, mismatch,
+                           gap_open, gap_extend, stream);
+  return dispatch<false>(hw, [&](auto bd) {
+    return launch_bits<decltype(bd)>(a, (int32_t*)score, (int32_t*)bend,
+                                     (uint32_t*)bits);
+  });
 }

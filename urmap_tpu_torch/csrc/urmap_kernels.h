@@ -14,10 +14,16 @@
 extern "C" {
 #endif
 
-// B3, seed_slots.cu
-int urmap_seed_slots(const void* rp, const void* rn, const void* lengths,
-                     void* slots, void* offs, void* valid, int n, int nw,
-                     int L, int k, int q, int slot_bits, void* stream);
+// B3, redesigned as the seed front, seed_slots.cu. packed/nmask: the upload
+// blocks (rp/rn nullptr), or rp/rn the word planes (packed nullptr);
+// obase nullptr for plain offsets.
+int urmap_seed_front(const void* packed, const void* nmask, int pk_cols,
+                     int nm_cols, const void* rp, const void* rn,
+                     const void* lengths, const void* offsets,
+                     const void* obase, int cnt_bits, int block_bits,
+                     void* rp2, void* rn2, void* offs, void* valid,
+                     void* start, void* cnt, int B, int nw, int L, int k,
+                     int q, int slot_bits, void* stream);
 // B4, vote.cu
 int urmap_vote(const void* cand, void* top, void* votes, int n, int m, int v,
                void* stream);

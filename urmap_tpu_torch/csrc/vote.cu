@@ -29,6 +29,14 @@
 //     (127 - index): the larger key is the lower index on equal votes,
 //     the reference's order; the lane that owns the pick writes it and
 //     clears its key.
+// Above 128 candidates (Q x P up to 8 x 256 = 2,048 at the index's
+// largest slot cap, and on to kMaxM) a read no longer fits a warp's
+// registers: vote_smem_kernel gives each read a block of 256 threads and
+// sorts its values, padded to the next power of two MP with SENTINEL, in
+// shared memory (the same bitonic network, a stage per barrier). A run
+// head e then finds its run's end by a binary search for the first value
+// above x[e] (log2 MP steps), and the top-V rounds are block-wide maxima
+// over the same keys, votes * MP + (MP - 1 - e): the same tie orders.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -38,6 +46,8 @@
 namespace {
 
 constexpr int kLanes = 128;
+constexpr int kSmemThreads = 256;  // threads per read above kLanes
+constexpr int kMaxM = 4096;        // the most candidates a read takes
 constexpr int kWarps = 4;  // reads per block
 constexpr int32_t kSentinel = 0x7FFFFFF0;
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -140,14 +150,103 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+__device__ __forceinline__ int block_max(int x, int* red) {
+  x = __reduce_max_sync(kFull, x);
+  const int w = threadIdx.x >> 5;
+  __syncthreads();  // red is free again
+  if ((threadIdx.x & 31) == 0) red[w] = x;
+  __syncthreads();
+  int m = red[0];
+#pragma unroll
+  for (int i = 1; i < kSmemThreads / 32; ++i) m = max(m, red[i]);
+  return m;
+}
+
+// One block per read, MP = the next power of two >= m (<= kMaxM).
+__global__ void __launch_bounds__(kSmemThreads)
+    vote_smem_kernel(const int32_t* __restrict__ cand,
+                     int32_t* __restrict__ top, int32_t* __restrict__ votes,
+                     int m, int mp, int v) {
+  __shared__ int x[kMaxM];
+  __shared__ int red[kSmemThreads / 32];
+  const long long row = blockIdx.x;
+  const int32_t* c = cand + row * m;
+  for (int e = threadIdx.x; e < mp; e += kSmemThreads)
+    x[e] = e < m ? c[e] : kSentinel;
+  __syncthreads();
+  // bitonic sort, ascending: element e meets e ^ stride; the lower of the
+  // two keeps the min where (e & size) == 0, else the max
+  for (int size = 2; size <= mp; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int p = threadIdx.x; p < mp / 2; p += kSmemThreads) {
+        const int e = 2 * p - (p & (stride - 1));  // e has bit `stride` 0
+        const int f = e + stride;
+        const int a = x[e], b = x[f];
+        const bool asc = (e & size) == 0;
+        if ((a > b) == asc) {
+          x[e] = b;
+          x[f] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // keys of the values this thread holds: heads by run length, the rest
+  // and SENTINEL's run 0 votes
+  int best_key = -1;
+  constexpr int kPer = kMaxM / kSmemThreads;
+  int key[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int e = threadIdx.x + j * kSmemThreads;
+    key[j] = -1;
+    if (e < mp) {
+      const int val = x[e];
+      int vts = 0;
+      if ((e == 0 || x[e - 1] != val) && val != kSentinel) {
+        int lo = e, hi = mp;  // the first index above e holding more
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (x[mid] > val) hi = mid; else lo = mid + 1;
+        }
+        vts = lo - e;
+      }
+      key[j] = vts * mp + (mp - 1 - e);
+      best_key = max(best_key, key[j]);
+    }
+  }
+  // top-V: the largest key, then its owner clears it
+  for (int r = 0; r < v; ++r) {
+    const int best = block_max(best_key, red);
+    const int e = mp - 1 - best % mp;
+    const int vts = best / mp;
+    if ((int)threadIdx.x == e % kSmemThreads) {
+      top[row * v + r] = vts > 0 ? x[e] : kSentinel;
+      votes[row * v + r] = vts;
+      best_key = -1;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        if (j == e / kSmemThreads) key[j] = -1;
+        best_key = max(best_key, key[j]);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int urmap_vote(const void* cand, void* top, void* votes, int n,
                           int m, int v, void* stream) {
-  if (n > 0) {
+  if (m < 1 || m > kMaxM || v < 1 || v > m) return (int)cudaErrorInvalidValue;
+  if (n > 0 && m <= kLanes) {
     const unsigned blocks = (unsigned)((n + kWarps - 1) / kWarps);
     vote_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
         (const int32_t*)cand, (int32_t*)top, (int32_t*)votes, n, m, v);
+  } else if (n > 0) {
+    int mp = kLanes;
+    while (mp < m) mp <<= 1;
+    vote_smem_kernel<<<(unsigned)n, kSmemThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)cand, (int32_t*)top, (int32_t*)votes, m, mp, v);
   }
   return (int)cudaGetLastError();
 }

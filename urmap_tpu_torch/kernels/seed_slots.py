@@ -1,9 +1,11 @@
-"""Kernel B3 wrapper: seed slots from the read word planes.
+"""Kernel B3 wrapper: the seed front.
 
-CUDA tensors launch ``csrc/seed_slots.cu`` (replaces
-urmap_tpu/kernels/seed_slots.py:seed_slots_words_pallas); CPU tensors
-run the plain version, map.seed.extract_seed_slots_words. The two are
-bit-equal: chip_smoke.py holds them to exact equality on the card.
+CUDA tensors launch ``csrc/seed_slots.cu seed_front_kernel`` (B3
+redesigned for the card: replaces
+urmap_tpu/kernels/seed_slots.py:seed_slots_words_pallas and the array ops
+around it, from the read upload to each seed's CSR run); CPU tensors run
+its plain version, map.seed.seed_front_plain. The two are bit-equal:
+chip_smoke.py holds them to exact equality on the card.
 """
 
 from __future__ import annotations
@@ -12,22 +14,36 @@ import torch
 
 from urmap_tpu_torch.kernels import Counter
 from urmap_tpu_torch.kernels import _build
-from urmap_tpu_torch.map.seed import extract_seed_slots_words
+from urmap_tpu_torch.map.seed import seed_front_plain
 
-counter = Counter("seed_slots")
+counter = Counter("seed_front")
+SMEM_BYTES = 227 * 1024  # the most shared memory an H100 block holds
 
 
-def seed_slots_words(rpacked: torch.Tensor, rnplane: torch.Tensor,
-                     lengths: torch.Tensor, L: int, *, k: int, q: int,
-                     slot_bits: int):
-    """(slots int32[N, Q], offs int32[N, Q], valid bool[N, Q]) from the
-    word planes int32[N, nw] and lengths int32[N]."""
-    if not rpacked.is_cuda:
+def front_max_read_len() -> int:
+    """The longest read block the seed front takes: 4 reads a block,
+    each with four planes of nw + 2 words in shared memory."""
+    return (SMEM_BYTES // (4 * 4 * 4) - 2) * 16
+
+
+def seed_front(a: torch.Tensor, b: torch.Tensor, lengths: torch.Tensor,
+               L: int, *, k: int, q: int, slot_bits: int,
+               offsets: torch.Tensor, obase: torch.Tensor | None = None,
+               cnt_bits: int = 0, block_bits: int = 0):
+    """The forward reads (``a``, ``b``: the upload blocks uint8 of
+    genome_pack.pack_read_codes_host, or the word planes int32[B, nw])
+    → (rpacked2, rnplane2 int32[2B, nw]: forward rows, then the reverse
+    complements; offs int32[2B, Q], valid bool[2B, Q]; start int64[2B,
+    Q] and cnt int32[2B, Q], each seed's CSR run in ``offsets``, packed
+    with ``obase`` when given). See map.seed.seed_front_plain."""
+    if not a.is_cuda:
         counter.plain_calls += 1
-        return extract_seed_slots_words(rpacked, rnplane, lengths, L, k=k,
-                                        q=q, slot_bits=slot_bits)
+        return seed_front_plain(a, b, lengths, L, k=k, q=q,
+                                slot_bits=slot_bits, offsets=offsets,
+                                obase=obase, cnt_bits=cnt_bits,
+                                block_bits=block_bits)
     _build.load()
-    slots, offs, valid = torch.ops.urmap.seed_slots(rpacked, rnplane, lengths,
-                                                    L, k, q, slot_bits)
+    outs = torch.ops.urmap.seed_front(a, b, lengths, L, k, q, slot_bits,
+                                      offsets, obase, cnt_bits, block_bits)
     counter.launched()
-    return slots, offs, valid
+    return outs

@@ -2,8 +2,9 @@
 
 CUDA tensors launch ``csrc/vote.cu`` (replaces
 urmap_tpu/kernels/vote.py:vote_pallas); CPU tensors run the plain
-version, map.seed.vote_top_candidates. The two are bit-equal. The kernel
-takes at most 128 candidates per read (the operator refuses more).
+version, map.seed.vote_top_candidates. The two are bit-equal. Up to 128
+candidates a read take the register body, up to ``MAX_M`` the
+shared-memory body (csrc/vote.cu); the operator refuses more.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from urmap_tpu_torch.kernels import _build
 from urmap_tpu_torch.map.seed import vote_top_candidates
 
 counter = Counter("vote")
+MAX_M = 4096  # candidates a read (Q x P) the kernel takes
 
 
 def vote(cand: torch.Tensor, *, v: int):

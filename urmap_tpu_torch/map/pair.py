@@ -166,6 +166,7 @@ def map_pairs_device(tables: dict, r1: torch.Tensor, l1: torch.Tensor,
     lens = torch.cat([l1, l2], dim=0)
     c = candidates_batch_device(tables, reads, lens, icfg=icfg, mcfg=mcfg,
                                 sc=sc)
+    words = c.pop("_words")
     c1 = {k: v[:B] for k, v in c.items()}
     c2 = {k: v[B:] for k, v in c.items()}
 
@@ -329,15 +330,12 @@ def map_pairs_device(tables: dict, r1: torch.Tensor, l1: torch.Tensor,
         # one traceback pass over both mates' final winners: proper,
         # rescued and single alike, since the pass re-anchors at
         # whatever POS won
-        from urmap_tpu_torch import genome_pack as gpk
-
-        rp, rn = gpk.pack_reads(reads, lens, -(-L // gpk.BASES_PER_WORD))
         pos2 = torch.cat([out1["pos"], out2["pos"]])
         strand2 = torch.cat([out1["strand"], out2["strand"]])
         gsel = torch.cat([o["mapped"] & o["gapped"] & ~o["clipped"]
                           for o in (out1, out2)])
-        res["_tb"] = tb_pass_device(tables, pos2, strand2, lens, gsel, rp,
-                                    rn, L=L, mcfg=mcfg, sc=sc)
+        res["_tb"] = tb_pass_device(tables, pos2, strand2, lens, gsel,
+                                    *words, L=L, mcfg=mcfg, sc=sc)
     return res
 
 

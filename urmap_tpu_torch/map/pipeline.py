@@ -34,7 +34,7 @@ from urmap_tpu_torch.config import (IndexConfig, MapConfig, ScoreConfig,
                               resolve_suspect_deficits)
 from urmap_tpu_torch.device import require_device
 from urmap_tpu_torch.map.dp import NEG, banded_packed
-from urmap_tpu_torch.map.seed import POS_BIAS, SENTINEL, gather_candidates
+from urmap_tpu_torch.map.seed import POS_BIAS, SENTINEL, gather_runs
 from urmap_tpu_torch.map.select import select_hits
 
 _COMP = np.asarray(alphabet.COMP_CODE)
@@ -117,6 +117,58 @@ def tb_enabled(mcfg: MapConfig) -> bool:
                 and os.environ.get("URMAP_NO_TB_BITS") != "1")
 
 
+def card_limits(mcfg: MapConfig) -> list[str]:
+    """What of ``mcfg`` the card's kernels do not take, one line each
+    naming the kernel and its limit; empty when every kernel of the path
+    takes it. The Mapper refuses such a config on a CUDA device before
+    the tables load; on the CPU every shape runs (the plain versions).
+
+    The limits: B1 (the banded DP, every mode) band half-widths 1-271
+    and the read block that one candidate's shared memory holds; B6 (the
+    device traceback, when tb_enabled) the read block that one winner's
+    holds; B4 (the vote) Q x P candidates a read; the seed front the
+    read block its four reads a block hold."""
+    from urmap_tpu_torch.kernels import banded_dp, seed_slots, tb_dp, vote
+
+    hw, L = mcfg.band_halfwidth, mcfg.max_read_len
+    out = []
+    if not 1 <= hw <= banded_dp.MAX_HALF_WIDTH:
+        out.append(f"band_halfwidth {hw}: kernel B1 (banded_dp) takes 1 to "
+                   f"{banded_dp.MAX_HALF_WIDTH}")
+    else:
+        lim = banded_dp.max_read_len(hw)
+        if L > lim:
+            out.append(f"max_read_len {L}: kernel B1 (banded_dp) holds at "
+                       f"most {lim} bases at band_halfwidth {hw} (one "
+                       "candidate in a block's 227 KB of shared memory)")
+    if tb_enabled(mcfg):
+        lim = tb_dp.max_read_len(hw)
+        if L > lim:
+            out.append(f"max_read_len {L}: kernel B6 (tb_dops) holds at "
+                       f"most {lim} bases at band_halfwidth {hw} (one "
+                       "winner in a block's 227 KB of shared memory); "
+                       "tb_bits=False maps it on the host traceback")
+    m = mcfg.seeds_per_read * mcfg.positions_per_seed
+    if m > vote.MAX_M:
+        out.append(f"seeds_per_read x positions_per_seed = {m}: kernel B4 "
+                   f"(vote) takes at most {vote.MAX_M} candidates a read")
+    lim = seed_slots.front_max_read_len()
+    if L > lim:
+        out.append(f"max_read_len {L}: the seed front (seed_front) holds at "
+                   f"most {lim} bases")
+    return out
+
+
+def refuse_beyond_card(mcfg: MapConfig, device: torch.device) -> None:
+    """ValueError on a CUDA device for a config beyond a kernel's limit
+    (card_limits): raised before any table loads."""
+    if device.type == "cuda":
+        lines = card_limits(mcfg)
+        if lines:
+            raise ValueError("this MapConfig is beyond the card's kernels: "
+                             + "; ".join(lines))
+
+
 def _nonzero_padded(mask: torch.Tensor, size: int) -> torch.Tensor:
     """The first ``size`` True indices of ``mask``, padded with 0 — the
     reference's jnp.nonzero(mask, size=size, fill_value=0). Fill lanes
@@ -144,7 +196,9 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     codes [B, L]). Returns per-read candidate arrays [B, 2V] (forward
     candidates in columns [:V], reverse-complement in [V:]): pos, score,
     strand, valid, ungapped, span; and per read dp_ran, clipped, weak,
-    nsat."""
+    nsat; and ``_words``, the word planes of both strands (rpacked2,
+    rnplane2 int32[2B, nw]: rows [0, B) forward, [B, 2B) reverse
+    complement), which the traceback pass reads again."""
     from urmap_tpu_torch import genome_pack as gpk
     from urmap_tpu_torch.kernels import seed_slots, vote
 
@@ -155,31 +209,25 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     q, p, v = mcfg.seeds_per_read, mcfg.positions_per_seed, mcfg.top_candidates
     ginter, base_off = tables["ginter"], tables["base_off"]
 
-    if packed_reads is not None:
-        rp1, rn1 = gpk.read_words_from_upload(*packed_reads, lengths, nw)
-    else:
-        rp1, rn1 = gpk.pack_reads(reads, lengths, nw)
-    rp_rc, rn_rc = gpk.revcomp_words(rp1, rn1, lengths, L)
-    rpacked2 = torch.cat([rp1, rp_rc], dim=0)               # [2B, nw]
-    rnplane2 = torch.cat([rn1, rn_rc], dim=0)
-    lengths2 = torch.cat([lengths, lengths], dim=0)         # [2B]
-
-    slots, offs, valid = seed_slots.seed_slots_words(
-        rpacked2, rnplane2, lengths2, L, k=icfg.k, q=q,
-        slot_bits=icfg.slot_bits)
     # packed-offsets coherence: the tables and the decode must agree, or
     # every candidate is garbage and every read comes back unmapped
     off_bits = tables["off_bits"]
     if ("obase" in tables) != (off_bits is not None):
         raise ValueError("tables carry packed offsets without off_bits "
                          "(or off_bits without the packed offsets)")
-    cand = gather_candidates(tables["offsets"], tables["positions"], slots,
-                             offs, valid, p=p,
-                             csr_aligned=tables["csr_aligned"],
-                             row128=tables["row128"],
-                             obase=tables.get("obase"),
-                             off_cnt_bits=off_bits[0] if off_bits else 0,
-                             off_block_bits=off_bits[1] if off_bits else 0)
+    # the seed front: both strands' words, the seeds and their CSR runs
+    # in one launch on the card (kernels/seed_slots.py)
+    fwd = packed_reads if packed_reads is not None \
+        else gpk.pack_reads(reads, lengths, nw)
+    rpacked2, rnplane2, offs, valid, start, cnt = seed_slots.seed_front(
+        *fwd, lengths, L, k=icfg.k, q=q, slot_bits=icfg.slot_bits,
+        offsets=tables["offsets"], obase=tables.get("obase"),
+        cnt_bits=off_bits[0] if off_bits else 0,
+        block_bits=off_bits[1] if off_bits else 0)
+    lengths2 = torch.cat([lengths, lengths], dim=0)         # [2B]
+    cand = gather_runs(tables["positions"], start, cnt, offs, valid, p=p,
+                       csr_aligned=tables["csr_aligned"],
+                       row128=tables["row128"])
     top_cand, votes = vote.vote(cand, v=v)                  # [2B, V]
     if mcfg.min_votes > 1:
         # vote floor with per-read fallback (config.MapConfig.min_votes)
@@ -321,7 +369,7 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     return {"pos": pos_f, "score": scores_f, "strand": strands,
             "valid": valid_c, "ungapped": ungapped_f, "span": spans_f,
             "dp_ran": served, "clipped": clipped_read, "weak": weak,
-            "nsat": nsat}
+            "nsat": nsat, "_words": (rpacked2, rnplane2)}
 
 
 def map_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
@@ -331,6 +379,7 @@ def map_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     with ``tb`` also ``_tb``, the traceback matrix of tb_pass_device."""
     c = candidates_batch_device(tables, reads, lengths, icfg=icfg,
                                 mcfg=mcfg, sc=sc, packed_reads=packed_reads)
+    words = c.pop("_words")
     out = select_hits(c["pos"], c["score"], c["strand"], c["valid"],
                       lengths, c["ungapped"], mc=mcfg, k=icfg.k)
     out["dp_ran"] = c["dp_ran"]
@@ -351,19 +400,12 @@ def map_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
         out["mapq"].clamp(max=mcfg.suspect_mapq_cap), out["mapq"])
     out["suspect"] = sat & (deficit > remap_d)
     if tb:
-        from urmap_tpu_torch import genome_pack as gpk
-
         L = mcfg.max_read_len if reads is None else reads.shape[1]
-        nw = -(-L // gpk.BASES_PER_WORD)
-        if packed_reads is not None:
-            rp1, rn1 = gpk.read_words_from_upload(*packed_reads, lengths, nw)
-        else:
-            rp1, rn1 = gpk.pack_reads(reads, lengths, nw)
         # clip-rescued rows keep the host clip-mode traceback (rare)
         gsel = out["mapped"] & out["gapped"] & ~out["clipped"]
         out["_tb"] = tb_pass_device(tables, out["pos"], out["strand"],
-                                    lengths, gsel, rp1, rn1, L=L,
-                                    mcfg=mcfg, sc=sc)
+                                    lengths, gsel, *words, L=L, mcfg=mcfg,
+                                    sc=sc)
     return out
 
 
@@ -392,14 +434,15 @@ def tb_rows(mcfg: MapConfig) -> int:
 
 def tb_pass_device(tables: dict, pos: torch.Tensor, strand: torch.Tensor,
                    lengths_rows: torch.Tensor, gsel: torch.Tensor,
-                   rp_fwd: torch.Tensor, rn_fwd: torch.Tensor, *, L: int,
+                   rp2: torch.Tensor, rn2: torch.Tensor, *, L: int,
                    mcfg: MapConfig, sc: ScoreConfig) -> torch.Tensor:
     """Compact gapped winners → windows at POS-hw → kernel B6 → one
     int32 matrix [TB_META_ROWS + DWp, C].
 
     pos: biased int32 winner positions (row-aligned with gsel);
-    rp_fwd/rn_fwd: FORWARD-strand word planes of the same rows (the
-    reverse complement is taken here, for the compacted subset only).
+    rp2/rn2: the word planes of both strands as the seed front gives
+    them, int32[2N, nw]: row r forward, row N + r its reverse
+    complement (genome_pack.revcomp_words of row r).
     Winners beyond the C lanes get no records and fall back to the host
     DP."""
     from urmap_tpu_torch import genome_pack as gpk
@@ -416,12 +459,10 @@ def tb_pass_device(tables: dict, pos: torch.Tensor, strand: torch.Tensor,
     # gsel bit may really be set
     do = torch.arange(C, device=gsel.device) < gsel.sum()
     lens = lengths_rows[idx]
-    rp, rn = rp_fwd[idx], rn_fwd[idx]
-    rp_rc, rn_rc = gpk.revcomp_words(rp, rn, lens, L)
     st = strand[idx].to(torch.int32)
-    st1 = (st == 1)[:, None]
-    codes = gpk.unpack_words_to_codes(torch.where(st1, rp_rc, rp),
-                                      torch.where(st1, rn_rc, rn), L)
+    # the winner's strand picks its row: forward, or N + row
+    row = idx + nrows * st
+    codes = gpk.unpack_words_to_codes(rp2[row], rn2[row], L)
     # fill lanes take p = 0 (biased), a position far past the genome's
     # end: their window is whatever the gather's clamp gives, and their
     # records are never read (do is 0)
@@ -584,9 +625,10 @@ class Mapper:
                                                  tables_from_numpy)
 
         self.device = require_device(device)
+        self.mcfg = mcfg or MapConfig()
+        refuse_beyond_card(self.mcfg, self.device)
         self.index = index
         self.icfg = index.config
-        self.mcfg = mcfg or MapConfig()
         self.sc = sc or ScoreConfig()
         # device traceback records: the one shared predicate
         self.tb = tb_enabled(self.mcfg)

@@ -7,8 +7,12 @@ counterpart in urmap_tpu/map/seed.py:
   1. extract_seed_slots_words: Q seed k-mers per read at evenly spaced
      offsets, from the 2-bit word planes, hashed to index slots (the
      plain version of kernel B3, kernels/seed_slots.py);
+     seed_front_plain composes it with the read words of both strands
+     and the CSR offset decode (the plain version of the seed front,
+     B3 redesigned);
   2. gather_candidates: CSR gather of up to P positions per seed →
-     candidate alignment starts (pos − seed offset);
+     candidate alignment starts (pos − seed offset): decode_offsets,
+     then gather_runs;
   3. vote_top_candidates: per read, the top-V distinct candidate starts
      by seed votes (the plain version of kernel B4, kernels/vote.py).
 
@@ -132,6 +136,58 @@ def _row128_fetch(positions2d: torch.Tensor, flat_starts: torch.Tensor,
                                128)
 
 
+def decode_offsets(offsets: torch.Tensor, slots: torch.Tensor, *,
+                   obase: torch.Tensor | None = None, cnt_bits: int = 0,
+                   block_bits: int = 0):
+    """Each seed's CSR run → (start int64, cnt int32), shaped as
+    ``slots``. ``offsets`` holds uint32 CSR offsets as int32 bit
+    patterns (widened to int64 here). ``obase``: ``offsets`` is the
+    packed table of store.pack_offsets_row128: one word carries two
+    uint16 slot entries (even slot in the low half), each
+    (start - obase[slot >> block_bits]) << cnt_bits | padded count."""
+    sl = slots.long()
+    if obase is not None:
+        w = offsets[sl >> 1]
+        u = torch.where((sl & 1) == 1, srl(w, 16), w) & 0xFFFF
+        b = obase[sl >> block_bits].long() & 0xFFFF_FFFF
+        start = b + (u >> cnt_bits).long()
+        cnt = u & ((1 << cnt_bits) - 1)
+    else:
+        start = offsets[sl].long() & 0xFFFF_FFFF
+        cnt = ((offsets[sl + 1].long() & 0xFFFF_FFFF) - start) \
+            .to(torch.int32)
+    return start, cnt
+
+
+def seed_front_plain(a: torch.Tensor, b: torch.Tensor,
+                     lengths: torch.Tensor, L: int, *, k: int, q: int,
+                     slot_bits: int, offsets: torch.Tensor,
+                     obase: torch.Tensor | None = None, cnt_bits: int = 0,
+                     block_bits: int = 0):
+    """The plain version of the seed front (kernels/seed_slots.py
+    seed_front): the forward words from the upload blocks (``a``, ``b``
+    uint8: genome_pack.read_words_from_upload) or as given (int32 word
+    planes), their reverse complements, both strands stacked, the seed
+    slots and the CSR offset decode → (rpacked2, rnplane2, offs, valid,
+    start, cnt); rows [0, B) forward, [B, 2B) reverse complement."""
+    from urmap_tpu_torch import genome_pack as gpk
+
+    nw = -(-L // gpk.BASES_PER_WORD)
+    if a.dtype == torch.uint8:
+        rp1, rn1 = gpk.read_words_from_upload(a, b, lengths, nw)
+    else:
+        rp1, rn1 = a, b
+    rp_rc, rn_rc = gpk.revcomp_words(rp1, rn1, lengths, L)
+    rpacked2 = torch.cat([rp1, rp_rc], dim=0)
+    rnplane2 = torch.cat([rn1, rn_rc], dim=0)
+    lengths2 = torch.cat([lengths, lengths], dim=0)
+    slots, offs, valid = extract_seed_slots_words(
+        rpacked2, rnplane2, lengths2, L, k=k, q=q, slot_bits=slot_bits)
+    start, cnt = decode_offsets(offsets, slots, obase=obase,
+                                cnt_bits=cnt_bits, block_bits=block_bits)
+    return rpacked2, rnplane2, offs, valid, start, cnt
+
+
 def gather_candidates(offsets: torch.Tensor, positions: torch.Tensor,
                       slots: torch.Tensor, seed_offs: torch.Tensor,
                       valid: torch.Tensor, *, p: int,
@@ -153,22 +209,25 @@ def gather_candidates(offsets: torch.Tensor, positions: torch.Tensor,
     store.pack_offsets_row128: one word carries two uint16 slot
     entries (even slot in the low half), each
     (start - obase[slot >> block_bits]) << cnt_bits | padded count."""
+    start, cnt = decode_offsets(offsets, slots, obase=obase,
+                                cnt_bits=off_cnt_bits,
+                                block_bits=off_block_bits)
+    return gather_runs(positions, start, cnt, seed_offs, valid, p=p,
+                       csr_aligned=csr_aligned, row128=row128)
+
+
+def gather_runs(positions: torch.Tensor, start: torch.Tensor,
+                cnt: torch.Tensor, seed_offs: torch.Tensor,
+                valid: torch.Tensor, *, p: int, csr_aligned: bool = False,
+                row128: bool = False) -> torch.Tensor:
+    """The fetch half of gather_candidates, from each seed's decoded CSR
+    run (start int64, cnt int32, both [N, Q]) → candidate starts
+    int32[N, Q*P]."""
     from urmap_tpu_torch import genome_pack as gpk
     from urmap_tpu_torch.kernels import lane_rotate
 
-    n, q = slots.shape
-    sl = slots.long()
-    if obase is not None:
-        w = offsets[sl >> 1]
-        u = torch.where((sl & 1) == 1, srl(w, 16), w) & 0xFFFF
-        b = obase[sl >> off_block_bits].long() & 0xFFFF_FFFF
-        start = b + (u >> off_cnt_bits).long()
-        cnt = u & ((1 << off_cnt_bits) - 1)
-    else:
-        start = offsets[sl].long() & 0xFFFF_FFFF
-        cnt = ((offsets[sl + 1].long() & 0xFFFF_FFFF) - start) \
-            .to(torch.int32)
-    j = torch.arange(p, dtype=torch.int32, device=slots.device)
+    n, q = cnt.shape
+    j = torch.arange(p, dtype=torch.int32, device=cnt.device)
     ok = (j[None, None, :] < cnt[:, :, None]) & valid[:, :, None]
     flat = start.reshape(-1)
     if row128:
