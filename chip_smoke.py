@@ -1,8 +1,8 @@
 """Smoke run of urmap_tpu_torch on one CUDA card: builds the kernels,
 holds each against its plain PyTorch version, maps a chromosome-scale
 read set through the port's Mapper on the aligned and on the row128
-table layout and a paired read set through its PairedMapper, and checks
-the results.
+table layout and a paired read set through its PairedMapper, drives the
+command line (python -m urmap_tpu_torch), and checks the results.
 
     python3 chip_smoke.py [--seed 0] [--reads 131072] [--pairs 65536]
 
@@ -11,8 +11,9 @@ Phases, each printing one JSON line:
   2. build   — nvcc builds csrc/*.cu for sm_90a and the operator
                binding csrc/ops.cpp against torch's headers, one per
                source side by side; torch.ops.load_library loads it;
-  3. kernels — B4 vote, B1 banded DP (plain and clip
-               mode), B5 dense-row fetch (row entry at W = 128, window
+  3. kernels — B4 vote, B1 banded DP (plain and clip mode; clip also
+               at the end-clip main DP's N = 32,768), B5 dense-row
+               fetch (row entry at W = 128, window
                entry at W = 256 and 384, the literal rotate, and the
                fused entries window_codes at 192 and 1,200 bases and
                window_mismatches at 10 read words, each over a 1-D and
@@ -72,7 +73,23 @@ Phases, each printing one JSON line:
                indel, 1% with a long random tail, 1% junk), batch 4,096;
                the slice's checks (tb_dops = batches, no plain call), and
                the first 1,024 reads on a CPU Mapper: MapResult, tb dict
-               and SAM bytes equal to the card's.
+               and SAM bytes equal to the card's;
+ 10. cli     — the command line, in-process through
+               urmap_tpu_torch.cli.main (the counters read around each
+               -map): -make_ufi over the genome's FASTA and -ufistats;
+               -map -batch 16,384 over phase 4's reads, whose SAM body
+               must equal phase 4's (tb_dops = batches, no plain call);
+               the default batch with the card's auto-fit and -batch
+               16,384 / 131,072 over the reads 8 times, each twice in
+               turns (reads/s, peak memory), and the memory a batch
+               takes at 160 and 704 bases, single-end and paired;
+               -endclip (B1 clip at N = 32,768 on the main DP, no B6,
+               correct fraction, the host's clip-mode DP a batch; card =
+               CPU Mapper on 2,048 reads) and -reverse -endclip (card =
+               CPU PairedMapper on 1,024 pairs); -secondpass 32 over
+               16,384 reads (the plain
+               run's SAM; its CPU calls counted as host-pass calls); and
+               one `python -m urmap_tpu_torch -map` of 4,096 reads.
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and
 the final {"ok": true, ...} line. Any failed check exits non-zero.
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -610,6 +627,8 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     # instructions take two cells at once in their s16x2 forms: 3.
     for name, key, clip, per_cell in (("banded_dp", "dp", None, 3),
                                       ("banded_dp_clip", "clip",
+                                       sc.clip_open, 7.5),
+                                      ("banded_dp_clip_n32768", "dp",
                                        sc.clip_open, 7.5)):
         w, r, ln = (put(a) for a in x[key])
         rows = int(ln.clamp(0, L_MAX).sum())
@@ -920,8 +939,9 @@ def write_fastq(path: str, codes: np.ndarray) -> None:
 
 
 def map_fastq(mapper, db, fq: str, batch: int, sam_path: str | None):
-    """FastqReader → Mapper → run_stream → cigars_nm_blob →
-    format_single_end. Returns (list of MapResult, SAM record bytes)."""
+    """FastqReader → Mapper → run_stream → cigars_nm_blob (in clip mode
+    under end_clip, as the CLI runs it) → format_single_end. Returns
+    (list of MapResult, SAM record bytes)."""
     from urmap_tpu_torch.io.fastq import FastqReader, PrefetchIterator
     from urmap_tpu_torch.io import sam_native
     from urmap_tpu_torch.utils.stream import run_stream
@@ -946,7 +966,7 @@ def map_fastq(mapper, db, fq: str, batch: int, sam_path: str | None):
         b = item[0]
         blob, off, nm, _span = cigars_nm_blob(
             db.codes, b.codes, res, mapper.sc, raw_lengths=b.seq_len,
-            clip_rows=res.clipped)
+            clip_open=clip_of(mapper), clip_rows=res.clipped)
         return res, sam_native.format_single_end(b, res, (blob, off), nm,
                                                  db)
 
@@ -963,6 +983,11 @@ def map_fastq(mapper, db, fq: str, batch: int, sam_path: str | None):
             f.write(samio.sam_header(db, "chip_smoke").encode("ascii"))
             f.write(data)
     return results, data
+
+
+def clip_of(mapper):
+    """The host traceback's clip_open: the CLI's rule (end_clip only)."""
+    return mapper.sc.clip_open if mapper.mcfg.end_clip else None
 
 
 def concat_results(results):
@@ -1094,7 +1119,7 @@ def make_world(rng, work: str, n_reads: int, n_half: int, n_pairs: int,
           f"row128 tables: {prepared128[1]}")
     t2 = time.perf_counter()
     codes, truth, strand = plant_reads(rng, db, n_reads)
-    w = {"db": db, "index": index, "prepared": prepared,
+    w = {"db": db, "fasta": fa, "index": index, "prepared": prepared,
          "prepared128": prepared128, "codes": codes, "truth": truth,
          "strand": strand, "n_half": n_half}
     for name, sub in (("reads", codes), ("reads_half", codes[:n_half]),
@@ -1115,6 +1140,8 @@ def read_counters() -> dict:
     from urmap_tpu_torch.kernels import counters
 
     return {c.name: {"launches": c.launches, "plain_calls": c.plain_calls,
+                     **({"host_pass_calls": c.host_pass_calls}
+                        if c.host_pass_calls else {}),
                      **({"widths": dict(c.widths)} if c.widths else {})}
             for c in counters()}
 
@@ -1126,14 +1153,21 @@ def reset_counters() -> None:
         c.reset()
 
 
-def check_counters(counts: dict, what: str) -> None:
-    """Every kernel of the mapping path launched, no plain version ran."""
-    from urmap_tpu_torch.kernels import OFF_PATH
+def check_counters(counts: dict, what: str, end_clip: bool = False) -> None:
+    """Every kernel of the mapping path launched, no plain version ran
+    (outside the wide second pass's host_pass); under end_clip the
+    kernels that path does not run were not launched either."""
+    from urmap_tpu_torch.kernels import OFF_PATH, OFF_PATH_END_CLIP
 
+    off = OFF_PATH_END_CLIP if end_clip else OFF_PATH
     for name, c in counts.items():
-        check(c["launches"] > 0 or name in OFF_PATH,
+        check(c["launches"] > 0 or name in off,
               f"{name}: no kernel launch in {what}")
         check(c["plain_calls"] == 0, f"{name}: plain version ran in {what}")
+    if end_clip:
+        for name in set(OFF_PATH_END_CLIP) - set(OFF_PATH):
+            check(counts[name]["launches"] == 0,
+                  f"{name}: launched in {what} under end_clip")
 
 
 FIELDS = ("mapped", "pos", "strand", "score", "second", "mapq", "gapped",
@@ -1434,7 +1468,8 @@ def pair_cigars(pm, db, b1, b2, res):
     from urmap_tpu_torch.map.cigar import cigars_nm_blob
 
     return [cigars_nm_blob(db.codes, b.codes, m, pm.sc,
-                           raw_lengths=b.seq_len, clip_rows=m.clipped)
+                           raw_lengths=b.seq_len, clip_open=clip_of(pm),
+                           clip_rows=m.clipped)
             for b, m in ((b1, res.m1), (b2, res.m2))]
 
 
@@ -1757,6 +1792,448 @@ def phase_shapes(dev, w: dict, smi: str, work: str, n: int) -> dict:
     return counts
 
 
+# ---- phase 10: the command line ------------------------------------------
+
+SWEEP = (16_384, 131_072)        # -batch values timed beside the default
+SWEEP_COPIES = 8                 # the sweep maps the reads this many times
+MEM_BATCHES = (16_384, 65_536)   # batch sizes of the memory fit
+N_EC_CPU, N_EC_CPU_PAIRS = 2048, 1024
+N_SECOND, N_SUB = 16_384, 4096
+
+
+def cpu_model() -> str:
+    """The host CPU as lscpu describes it: its model name, or, where the
+    machine reports none (a virtual machine may mask it), vendor, family and
+    model number."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60)
+    f = {}
+    for line in out.stdout.splitlines():
+        key, _, value = line.partition(":")
+        f.setdefault(key.strip(), value.strip())
+    name = f.get("Model name", "")
+    if name not in ("", "unknown", "-"):
+        return name
+    return (f"{f.get('Vendor ID', '?')} family {f.get('CPU family', '?')} "
+            f"model {f.get('Model', '?')} (no model name reported)")
+
+
+def cli_map(dev, args: list) -> dict:
+    """urmap_tpu_torch.cli.main(args, device=dev) in this process (so the
+    kernel counters can be read), under sys.argv = ["urmap", *args] for
+    the @PG line: wall seconds (index load and table upload included),
+    the CLI's own summary (reads/s of its map loop), the auto-fit's
+    batch where it printed one, and peak memory."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from urmap_tpu_torch import cli
+
+    err = io.StringIO()
+    torch.cuda.synchronize(dev)
+    # the allocator's cache from earlier phases out, so that the peak
+    # reserved less the peak allocated is this run's own slack
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    argv, sys.argv = sys.argv, ["urmap", *args]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(args, device=dev)
+        torch.cuda.synchronize(dev)
+    finally:
+        sys.argv = argv
+    wall = time.perf_counter() - t0
+    text = err.getvalue()
+    check(rc == 0, f"cli.main {args}: exit {rc}")
+    m = re.search(r"([\d,]+) reads, [\d,]+ mapped \(([\d.]+)%\), "
+                  r"([\d.]+)s \(([\d,]+) reads/s\)", text)
+    check(m is not None, f"cli.main {args}: no summary in {text[-400:]!r}")
+    auto = re.search(r"auto batch \d+ → (\d+)", text)
+    return {"wall_s": wall, "reads": int(m.group(1).replace(",", "")),
+            "mapped_pct": float(m.group(2)), "cli_map_s": float(m.group(3)),
+            "cli_reads_per_s": int(m.group(4).replace(",", "")),
+            "reads_per_wall_s": int(m.group(1).replace(",", "")) / wall,
+            "auto_batch": int(auto.group(1)) if auto else None,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "max_memory_reserved": torch.cuda.max_memory_reserved(dev)}
+
+
+def sam_records(path: str) -> list:
+    """The SAM file's record lines (no header), newline kept."""
+    with open(path, "rb") as f:
+        return [ln for ln in f if not ln.startswith(b"@")]
+
+
+def sam_calls(records: list, starts) -> dict:
+    """Per record: read index (QNAME r<i>), first mate, mapped, strand,
+    the leading soft clip, and the global POS less that clip."""
+    import re
+
+    n = len(records)
+    out = {k: np.zeros(n, np.int64) for k in ("i", "first", "mapped",
+                                               "strand", "pos", "lead")}
+    for j, ln in enumerate(records):
+        f = ln.split(b"\t", 6)
+        flag = int(f[1])
+        lead = re.match(rb"(\d+)S", f[5])
+        out["i"][j] = int(f[0][1:])
+        out["first"][j] = not flag & 0x80
+        out["mapped"][j] = not flag & 4
+        out["strand"][j] = bool(flag & 16)
+        out["lead"][j] = int(lead.group(1)) if lead else 0
+        out["pos"][j] = int(starts[0]) + int(f[3]) - 1 - out["lead"][j]
+    return out
+
+
+def long_pairs(rng, db, n: int, ln: int):
+    """n FR pairs of ln-base mates from fragments of ln-1,000 bases in
+    N-free stretches, the memory fit's reads at a long block, with the
+    slice's mix: 1% SNPs, 5% with mate 2 mutated every 15th base (the
+    rescue scan), 1% with a random tail of 60% on mate 1 (the clip
+    lane), 1% junk."""
+    from urmap_tpu_torch import alphabet
+
+    g = db.codes
+    lo, hi = int(db.starts[0]), int(db.starts[0] + db.lengths[0])
+    isn = np.concatenate([[0], np.cumsum(g >= 4)])
+    pos = np.zeros(n, np.int64)
+    todo = np.arange(n)
+    while todo.size:
+        p = rng.integers(lo, hi - 1_100, size=todo.size)
+        ok = isn[p + 1_100] - isn[p] == 0
+        pos[todo[ok]] = p[ok]
+        todo = todo[~ok]
+    frag = rng.integers(ln, 1_001, size=n)
+    col = np.arange(ln)[None, :]
+    m1 = g[pos[:, None] + col]
+    m2 = alphabet.COMP_CODE[g[(pos + frag - ln)[:, None] + col][:, ::-1]]
+    for m in (m1, m2):
+        snp = rng.random(m.shape) < 0.01
+        m[snp] = (m[snp] + rng.integers(1, 4, int(snp.sum()))) % 4
+    kind = rng.choice(4, size=n, p=[0.93, 0.05, 0.01, 0.01])
+    grid = np.arange(7, ln, 15)
+    mut = np.ix_(kind == 1, grid)
+    m2[mut] = (m2[mut] + rng.integers(1, 4, m2[mut].shape)) % 4
+    t = int(ln * 0.6)
+    m1[kind == 2, ln - t :] = rng.integers(0, 4, (int((kind == 2).sum()), t))
+    for m in (m1, m2):
+        m[kind == 3] = rng.integers(0, 4, (int((kind == 3).sum()), ln))
+    return m1.astype(np.uint8), m2.astype(np.uint8)
+
+
+def batch_peak_bytes(dev, mapper, mcfg, c1, c2=None) -> int:
+    """Bytes one batch (c1; with c2 a pair batch) allocates on the card
+    above what it held before: torch.cuda.max_memory_allocated() less
+    memory_allocated() before (the tables and every earlier object)."""
+    import torch
+
+    from urmap_tpu_torch.map.pair import PairedMapper
+
+    mapper.mcfg = mcfg           # the tables do not depend on the batch
+    lens = np.full(len(c1), c1.shape[1], np.int32)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    if c2 is None:
+        mapper.map_codes(c1, lens)
+    else:
+        PairedMapper(mapper).map_pair_codes(c1, lens, c2, lens)
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev) - base
+
+
+def phase_memory(dev, w: dict) -> dict:
+    """The card memory of one map batch as a function of the batch and
+    max_read_len, single-end and paired (pair batches of batch // 2
+    pairs): the slope between MEM_BATCHES at L_MAX (the slice's reads
+    and pairs) and SHAPES_L (planted pairs of 700 bases, rescue_window as
+    the shapes phase), fitted as a + b * max_read_len bytes a read; the
+    intercepts, and the CUDA context's and the allocator's share."""
+    import torch
+
+    from urmap_tpu_torch.config import MapConfig
+    from urmap_tpu_torch.io.fastq import FastqReader
+    from urmap_tpu_torch.map import Mapper
+
+    mm = Mapper(w["index"], MapConfig(batch_size=B), device=dev,
+                prepared=w["prepared"])
+    tables = nbytes([t for t in mm.tables.values() if torch.is_tensor(t)])
+    nmax = max(MEM_BATCHES)
+    p1, p2 = next(iter(FastqReader(w["r1"], w["r2"], batch_size=nmax // 2)))
+    l1, l2 = long_pairs(np.random.default_rng([w["seed"], 3]), w["db"],
+                        nmax // 4, SHAPES_L - 4)
+    reads = {L_MAX: (w["codes"], p1.codes, p2.codes),
+             SHAPES_L: (np.tile(l1, (4, 1)), l1, l2)}
+    fit, raw = {}, {}
+    for paired in (False, True):
+        slope = {}
+        for L in (L_MAX, SHAPES_L):
+            peaks = []
+            for bs in MEM_BATCHES:
+                mcfg = MapConfig(batch_size=bs, max_read_len=L,
+                                 rescue_window=max(1200, 2 * L + 1200))
+                se, m1, m2 = reads[L]
+                peaks.append(batch_peak_bytes(
+                    dev, mm, mcfg, m1[: bs // 2] if paired else se[:bs],
+                    m2[: bs // 2] if paired else None))
+            raw[f"{'paired' if paired else 'single'}_L{L}"] = peaks
+            slope[L] = (peaks[1] - peaks[0]) / (MEM_BATCHES[1]
+                                                - MEM_BATCHES[0])
+            fit[f"intercept_{'paired' if paired else 'single'}_L{L}"] = \
+                peaks[0] - slope[L] * MEM_BATCHES[0]
+        b = (slope[SHAPES_L] - slope[L_MAX]) / (SHAPES_L - L_MAX)
+        key = "paired" if paired else "single"
+        fit[f"bytes_per_read_{key}"] = {str(L): slope[L] for L in slope}
+        fit[f"fit_{key}"] = [slope[L_MAX] - b * L_MAX, b]
+    free, total = torch.cuda.mem_get_info(dev)
+    return {"tables_bytes": tables, "peaks_above_base": raw, **fit,
+            "cuda_context_bytes": total - free
+            - torch.cuda.memory_reserved(dev),
+            "total_memory": total}
+
+
+def phase_cli(dev, w: dict, aligned: dict, smi: str, work: str) -> dict:
+    """Phase 10: the command line, in this process through
+    urmap_tpu_torch.cli.main (the counters are read around each -map),
+    and once as ``python -m urmap_tpu_torch``. Returns the counts of its
+    paths: cli (-batch 16,384 over the slice's reads), endclip, endclip
+    paired and secondpass."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from urmap_tpu_torch import cli
+    from urmap_tpu_torch.config import MapConfig
+    from urmap_tpu_torch.index import UfiIndex
+    from urmap_tpu_torch.io.fastq import FastqReader
+    from urmap_tpu_torch.map import Mapper
+    from urmap_tpu_torch.map.cigar import cigars_nm_blob
+    from urmap_tpu_torch.map.pair import PairedMapper
+
+    db, paths = w["db"], {}
+    ufi = os.path.join(work, "cli.ufi")
+    sam = os.path.join(work, "cli.sam")
+    shutil.rmtree(ufi, ignore_errors=True)
+    # 1. the index from the FASTA, and its statistics
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        check(cli.main(["-make_ufi", w["fasta"], "-output", ufi]) == 0,
+              "-make_ufi")
+    t1 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(cli.main(["-ufistats", ufi]) == 0, "-ufistats")
+    index_bytes = sum(os.path.getsize(os.path.join(d, n))
+                      for d, _, names in os.walk(ufi) for n in names)
+    emit({"phase": "cli_index", "make_ufi_s": t1 - t0,
+          "ufistats_s": time.perf_counter() - t1, "index_bytes": index_bytes,
+          "ufistats": out.getvalue().splitlines()[:4]})
+
+    # 2. -map at -batch B over the slice's reads: phase 4's SAM body
+    reset_counters()
+    run = cli_map(dev, ["-map", w["reads_half"], "-ufi", ufi, "-samout", sam,
+                        "-batch", str(B), "-quiet"])
+    paths["cli"] = counts = read_counters()
+    body = sam_records(sam)
+    nb = -(-w["n_half"] // B)
+    emit({"phase": "cli", "gpu": smi, "host_cpu": cpu_model(),
+          "batch": B, **run, "batches": nb, "counters": counts,
+          "sam_equals_phase4": b"".join(body) == aligned["sam"]})
+    check(b"".join(body) == aligned["sam"],
+          "cli -map: the SAM body differs from phase 4's")
+    check_counters(counts, "cli -map")
+    check(counts["tb_dops"]["launches"] == nb,
+          f"cli -map: tb_dops launches {counts['tb_dops']['launches']} != "
+          f"batches {nb}")
+
+    # 3. the default batch with the auto-fit, then the sweep, over the
+    # reads SWEEP_COPIES times; a warm run at the default batch first,
+    # then each batch twice, in turns
+    sweep_fq = os.path.join(work, "reads_sweep.fq")
+    with open(w["reads"], "rb") as f:
+        data = f.read()
+    with open(sweep_fq, "wb") as f:
+        for _ in range(SWEEP_COPIES):
+            f.write(data)
+    fit_batch = cli._auto_batch({}, UfiIndex.load(ufi),
+                                MapConfig(batch_size=65_536), True,
+                                dev).batch_size
+    sweep_out = os.path.join(work, "cli_sweep.sam")
+    cli_map(dev, ["-map", w["reads_half"], "-ufi", ufi, "-samout",
+                  sweep_out, "-quiet"])
+    sweep = {}
+    for bs in (None,) + SWEEP + SWEEP[::-1] + (None,):
+        extra = [] if bs is None else ["-batch", str(bs), "-quiet"]
+        sweep.setdefault("default" if bs is None else str(bs), []).append(
+            cli_map(dev, ["-map", sweep_fq, "-ufi", ufi, "-samout",
+                          sweep_out, *extra]))
+    emit({"phase": "cli_batch", "gpu": smi, "host_cpu": cpu_model(),
+          "cpu_count": os.cpu_count(),
+          "reads": SWEEP_COPIES * len(w["codes"]),
+          "auto_fit_batch": fit_batch, "runs": sweep})
+    check(fit_batch == 65_536, f"the auto-fit took {fit_batch} on the card")
+    mem = phase_memory(dev, w)
+    emit({"phase": "cli_memory", "gpu": smi, **mem,
+          "allocator_slack_bytes": {
+              k: max(r["max_memory_reserved"] - r["max_memory_allocated"]
+                     for r in v) for k, v in sweep.items()}})
+
+    # 4. -endclip over the slice's reads
+    mcfg_ec = MapConfig(batch_size=B, end_clip=True)
+    reset_counters()
+    ec_sam = os.path.join(work, "cli_endclip.sam")
+    run = cli_map(dev, ["-map", w["reads_half"], "-ufi", ufi, "-samout",
+                        ec_sam, "-batch", str(B), "-endclip", "-quiet"])
+    paths["endclip"] = counts = read_counters()
+    recs = sam_records(ec_sam)
+    calls = sam_calls(recs, db.starts)
+    n = w["n_half"]
+    truth, strand = w["truth"][:n], w["strand"][:n]
+    planted = truth >= 0
+    ok = (calls["mapped"] == 1) & (calls["strand"] == strand) \
+        & (calls["pos"] == truth)
+    frac = float(ok[planted].mean())
+    # the first reads on a CPU Mapper, and on the card through the Mapper
+    card = Mapper(w["index"], mcfg_ec, device=dev, prepared=w["prepared"])
+    cpu = Mapper(w["index"], mcfg_ec, device="cpu", prepared=w["prepared"])
+    fq_ec = os.path.join(work, "reads_ec_cpu.fq")
+    write_fastq(fq_ec, w["codes"][:N_EC_CPU])
+    t2 = time.perf_counter()
+    cpu_results, cpu_sam = map_fastq(cpu, db, fq_ec, B, None)
+    cpu_s = time.perf_counter() - t2
+    card_results, _ = map_fastq(card, db, fq_ec, B, None)
+    diff = differing(concat_results(cpu_results),
+                     concat_results(card_results))
+    same_sam = cpu_sam == b"".join(recs[:N_EC_CPU])
+    # the host's clip-mode DP on one batch of the card's calls
+    b = next(iter(FastqReader(w["reads_half"], batch_size=B)))
+    res = card.map_codes(b.codes, b.lengths)
+    clip_ms = []
+    for _ in range(3):
+        t3 = time.perf_counter()
+        cigars_nm_blob(db.codes, b.codes, res, card.sc,
+                       raw_lengths=b.seq_len, clip_open=card.sc.clip_open,
+                       clip_rows=res.clipped)
+        clip_ms.append((time.perf_counter() - t3) * 1e3)
+    # one end-clip batch under torch.profiler: device time by kernel
+    pk = card.prepack(b.codes, b.lengths)
+    prof = profile_call(lambda: card.finish_batch(card.start_batch(
+        b.codes, b.lengths, prepacked=pk), b.lengths),
+        os.path.join(work, "profile_endclip.txt"))
+    emit({"phase": "cli_endclip", "gpu": smi, "host_cpu": cpu_model(),
+          **run, "batches": nb, "correct_frac": frac,
+          "correct_rule": "mapped, strand as planted, SAM POS less the "
+                          "leading soft clip = the planted start",
+          "leading_clips": int((calls["lead"] > 0).sum()),
+          "soft_clipped": int(sum(b"S" in ln.split(b"\t")[5]
+                                  for ln in recs)),
+          "junk_unmapped_frac": float(
+              (calls["mapped"][~planted] == 0).mean()),
+          "counters": counts,
+          "kernel_launches_per_batch": sum(c["launches"]
+                                           for c in counts.values()) / nb,
+          "host_clip_dp_ms_per_batch": statistics.median(clip_ms),
+          "host_clip_dp_rows": int((res.mapped & res.gapped).sum()),
+          "cpu_reads": N_EC_CPU, "cpu_fields_differing": diff,
+          "cpu_sam_identical": same_sam, "cpu_map_s": cpu_s,
+          "profile": {k: prof[k] for k in (
+              "profiled_wall_ms", "device_busy_ms", "device_idle_share",
+              "device_launches", "port_kernels_device_ms")}})
+    check_counters(counts, "cli -endclip", end_clip=True)
+    check(counts["banded_dp_clip"].get("widths", {}).get(
+        2 * (B // mcfg_ec.dp_capacity_frac) * V, 0) > 0,
+        "cli -endclip: no B1 clip launch at the main DP's shape")
+    check(frac >= 0.99, f"cli -endclip: correct fraction {frac} < 0.99")
+    check(not diff, f"cli -endclip: card and CPU differ in {diff}")
+    check(same_sam, "cli -endclip: card and CPU SAM bytes differ")
+
+    # 5. -reverse -endclip over the paired phase's pairs
+    reset_counters()
+    pe_sam = os.path.join(work, "cli_endclip_pe.sam")
+    run = cli_map(dev, ["-map", w["r1"], "-reverse", w["r2"], "-ufi", ufi,
+                        "-samout", pe_sam, "-batch", str(B), "-endclip",
+                        "-quiet"])
+    paths["endclip_paired"] = counts = read_counters()
+    recs = sam_records(pe_sam)
+    calls = sam_calls(recs, db.starts)
+    t = w["pair_truth"]
+    first = calls["first"] == 1
+    i = calls["i"]
+    tpos = np.where(first, t["pos1"][i], t["pos2"][i])
+    tst = np.where(first, t["strand1"][i], t["strand2"][i])
+    pl = t["kind"][i] != 3
+    ok = (calls["mapped"] == 1) & (calls["strand"] == tst) \
+        & (calls["pos"] == tpos)
+    frac = float(ok[pl].mean())
+    cpm = PairedMapper(Mapper(w["index"], mcfg_ec, device="cpu",
+                              prepared=w["prepared"]))
+    gpm = PairedMapper(card)
+    b1, b2 = next(iter(FastqReader(w["r1_cpu"], w["r2_cpu"],
+                                   batch_size=N_EC_CPU_PAIRS)))
+    t2 = time.perf_counter()
+    cres = cpm.map_pair_codes(b1.codes, b1.lengths, b2.codes, b2.lengths)
+    cpu_s = time.perf_counter() - t2
+    gres = gpm.map_pair_codes(b1.codes, b1.lengths, b2.codes, b2.lengths)
+    diff = [f"m1.{f}" for f in differing(cres.m1, gres.m1)] \
+        + [f"m2.{f}" for f in differing(cres.m2, gres.m2)] \
+        + ([] if np.array_equal(cres.proper, gres.proper) else ["proper"])
+    # a pair batch's SAM holds its mate-1 records, then its mate-2
+    # records: the first pairs' records in file order are both blocks
+    head = b"".join(r for r, k in zip(recs, i) if k < N_EC_CPU_PAIRS)
+    same_sam = format_pairs(cpm, db, b1, b2, cres) == head
+    emit({"phase": "cli_endclip_paired", "gpu": smi, **run,
+          "pair_batch": B // 2, "correct_mate_frac": frac,
+          "counters": counts, "cpu_pairs": N_EC_CPU_PAIRS,
+          "cpu_fields_differing": diff, "cpu_sam_identical": same_sam,
+          "cpu_map_s": cpu_s})
+    check_counters(counts, "cli -reverse -endclip", end_clip=True)
+    check(frac >= 0.99, f"cli -reverse -endclip: correct mates {frac}")
+    check(not diff, f"cli -reverse -endclip: card and CPU differ in {diff}")
+    check(same_sam, "cli -reverse -endclip: card and CPU SAM bytes differ")
+
+    # 6. -secondpass 32: on this corpus the plain run's SAM
+    fq_sp = os.path.join(work, "reads_second.fq")
+    write_fastq(fq_sp, w["codes"][:N_SECOND])
+    sp_sam = os.path.join(work, "cli_second.sam")
+    reset_counters()
+    run = cli_map(dev, ["-map", fq_sp, "-ufi", ufi, "-samout", sp_sam,
+                        "-batch", str(B), "-secondpass", "32", "-quiet"])
+    paths["secondpass"] = counts = read_counters()
+    same = b"".join(sam_records(sp_sam)) == b"".join(body[:N_SECOND])
+    host_calls = sum(c.get("host_pass_calls", 0) for c in counts.values())
+    emit({"phase": "cli_secondpass", "gpu": smi, **run,
+          "sam_equals_plain": same, "host_pass_calls": host_calls,
+          "counters": counts})
+    check_counters(counts, "cli -secondpass")
+    check(host_calls > 0, "cli -secondpass: the second pass ran nothing")
+    check(same, "cli -secondpass 32: SAM differs from the plain run's")
+
+    # 7. python -m urmap_tpu_torch in a process of its own
+    fq_sub = os.path.join(work, "reads_sub.fq")
+    write_fastq(fq_sub, w["codes"][:N_SUB])
+    sub_sam = os.path.join(work, "cli_sub.sam")
+    t2 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "urmap_tpu_torch", "-map", fq_sub, "-ufi",
+         ufi, "-samout", sub_sam, "-batch", str(B), "-quiet"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    same = proc.returncode == 0 and \
+        b"".join(sam_records(sub_sam)) == b"".join(body[:N_SUB])
+    emit({"phase": "cli_subprocess", "rc": proc.returncode,
+          "seconds": time.perf_counter() - t2, "sam_identical": same,
+          "stderr": proc.stderr[-300:]})
+    check(same, "python -m urmap_tpu_torch -map: SAM differs")
+    torch.cuda.synchronize(dev)
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1781,7 +2258,8 @@ def main(argv=None) -> int:
           "the port's native codecs did not build (g++)")
     dev = require_device("cuda")
     smi = smi_line()
-    emit({"phase": "device", "gpu": smi,
+    emit({"phase": "device", "gpu": smi, "host_cpu": cpu_model(),
+          "cpu_count": os.cpu_count(),
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -1834,6 +2312,7 @@ def main(argv=None) -> int:
     sg_counts = phase_semiglobal(dev, w, r128, N_CPU)
     w["seed"] = args.seed
     sh_counts = phase_shapes(dev, w, smi, work, N_SHAPES)
+    cli_counts = phase_cli(dev, w, aligned, smi, work)
 
     src = "urmap_tpu_torch/csrc/"
     tpu = "urmap_tpu/kernels/"
@@ -1878,8 +2357,8 @@ def main(argv=None) -> int:
         "window_codes": ["window_codes_row128"],
         "banded_dp": ["banded_dp_hw12", "banded_dp_hw24", "banded_dp_hw40",
                       "banded_dp_L700", "banded_dp_L2000"],
-        "banded_dp_clip": ["banded_dp_hw12_clip", "banded_dp_hw24_clip",
-                           "banded_dp_hw40_clip"],
+        "banded_dp_clip": ["banded_dp_clip_n32768", "banded_dp_hw12_clip",
+                           "banded_dp_hw24_clip", "banded_dp_hw40_clip"],
         "banded_semiglobal": ["banded_semiglobal_hw12",
                               "banded_semiglobal_hw24",
                               "banded_semiglobal_hw40"],
@@ -1895,9 +2374,11 @@ def main(argv=None) -> int:
             return counts[counter].get("widths", {}).get(width, 0)
         return counts[name]["launches"]
 
-    # launches: the counts over the three paths (aligned slice, row128
-    # slice, paired run), each read just after its run with the counters
-    # set to 0 just before it, summed; by path under launches_by_path.
+    # launches: the counts over the paths (aligned slice, row128 slice,
+    # paired run, semiglobal, shapes, and the cli phase's -map runs: cli,
+    # endclip, endclip_paired, secondpass), each read just after its run
+    # with the counters set to 0 just before it, summed; by path under
+    # launches_by_path.
     # banded_semiglobal's path is phase 8 (the winners re-aligned over
     # the byte genome). The plain window entry serves the classic
     # layout's positions only, and the clip mode of B1', the literal
@@ -1905,7 +2386,7 @@ def main(argv=None) -> int:
     # them phase3_launches times (one compared, eight timed).
     paths = {"slice": aligned["counts"], "row128": r128["counts"],
              "paired": pe_counts, "semiglobal": sg_counts,
-             "shapes": sh_counts}
+             "shapes": sh_counts, **cli_counts}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []

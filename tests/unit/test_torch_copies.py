@@ -70,6 +70,13 @@ FUNCTION_COPIES = [
     ("map.cigar", "add_truncation_clips"), ("map.cigar", "cigars_for_result"),
     ("map.pair", "PairResult"), ("map.pair", "_ref_spans"),
     ("index.store", "ginter_rows"),
+    ("dist.multihost", "_align_to_record"),
+    ("dist.multihost", "fastq_byte_ranges"),
+    ("dist.multihost", "_norm_name"),
+    ("dist.multihost", "_find_record_by_name"),
+    ("dist.multihost", "paired_fastq_byte_ranges"),
+    ("dist.multihost", "Watermark"), ("dist.multihost", "ShardWriter"),
+    ("dist.multihost", "merge_shards"),
 ]
 
 

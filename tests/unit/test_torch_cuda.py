@@ -908,3 +908,71 @@ def test_cuda_mapper_refuses_beyond_the_kernels(cuda_device):
     with pytest.raises(ValueError, match=r"kernel B4 \(vote\) takes at most "
                                          "4096"):
         Mapper(None, MapConfig(positions_per_seed=1024), device=cuda_device)
+
+
+def test_banded_dp_clip_at_the_end_clip_main_dp_shape(cuda_device):
+    """B1 in clip mode at the shape -endclip's main DP gives it: N =
+    2 * (B / dp_capacity_frac) * V = 32,768 candidates at the default
+    batch of 16,384, L = 160, hw = 16; equal to the plain version."""
+    from urmap_tpu_torch.kernels import banded_dp
+
+    mc = MapConfig(batch_size=16_384)
+    n = 2 * (mc.batch_size // mc.dp_capacity_frac) * mc.top_candidates
+    assert n == 32_768
+    args, want = _dp_plain(n, 160, 16, True)
+    sc = ScoreConfig()
+    banded_dp.clip_counter.reset()
+    got = banded_dp.banded_from_windows(*args, hw=16, sc=sc,
+                                        clip_open=sc.clip_open)
+    torch.cuda.synchronize()
+    assert banded_dp.clip_counter.launches == 1
+    for name, g, w in zip(("score", "d0", "d1", "ungapped"), got, want):
+        assert torch.equal(g, w), name
+
+
+def test_cli_map_endclip_on_the_card_equals_the_cpu(cuda_device, tmp_path,
+                                                    monkeypatch):
+    """``cli.main -map -endclip`` on the card writes the CPU run's SAM,
+    through B1 in clip mode and without the traceback kernel (B6); with
+    -secondpass the card path still runs no plain version (the second
+    pass's CPU calls count as host-pass calls)."""
+    import sys
+
+    from tests.utils import write_fastq
+    from urmap_tpu_torch import alphabet, cli
+
+    rng = np.random.default_rng(8)
+    db = make_seqdb(rng, [200_000])
+    fa = str(tmp_path / "g.fa")
+    with open(fa, "w") as f:
+        f.write(">chr1\n" + alphabet.decode(db.codes[db.starts[0]:]) + "\n")
+    reads = [plant_read(rng, db, n_snps=int(rng.integers(0, 4)),
+                        dels=3 if i % 5 == 0 else 0) for i in range(300)]
+    for r in reads[1::7]:
+        r.codes[-60:] = rng.integers(0, 4, 60)
+    for r in reads[2::11]:                 # junk: the second pass's rows
+        r.codes[:] = rng.integers(0, 4, len(r.codes))
+    fq = str(tmp_path / "r.fq")
+    write_fastq(fq, reads)
+    ufi = str(tmp_path / "g.ufi")
+    monkeypatch.setattr(sys, "argv", ["urmap"])
+    assert cli.main(["-make_ufi", fa, "-output", ufi]) == 0
+    for extra in (["-endclip"], ["-secondpass", "32"]):
+        out = {}
+        for dev in ("cpu", cuda_device):
+            for c in counters():
+                c.reset()
+            sam = str(tmp_path / f"{dev}.sam")
+            assert cli.main(["-map", fq, "-ufi", ufi, "-samout", sam,
+                             "-batch", "128", "-quiet", *extra],
+                            device=dev) == 0
+            out[str(dev)] = open(sam, "rb").read()
+        by_name = {c.name: c for c in counters()}
+        assert all(c.plain_calls == 0 for c in counters())
+        if extra == ["-endclip"]:
+            assert by_name["banded_dp_clip"].launches > 0
+            assert by_name["tb_dops"].launches == 0
+        else:
+            assert by_name["tb_dops"].launches == 3
+            assert by_name["vote"].host_pass_calls > 0
+        assert out["cuda"] == out["cpu"]

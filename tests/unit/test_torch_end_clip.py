@@ -1,0 +1,165 @@
+"""End-clip mode (MapConfig.end_clip) of the port against urmap_tpu.
+
+The port's Mapper and PairedMapper on the CPU (plain versions) and
+urmap_tpu's on the same planted reads with ``end_clip=True``: every
+field of MapResult / PairResult equal, and the SAM bytes of the
+clip-mode host traceback (cigars_nm_blob with clip_open) identical.
+The cases are urmap_tpu's own: reads with a garbage tail map soft-clipped
+at the truth (tests/unit/test_end_clip.py), the clip-rescue lane is
+off under end_clip (tests/integration/test_clip_rescue.py), and the
+device traceback (kernel B6) is not run.
+"""
+
+import numpy as np
+import pytest
+
+from tests.utils import make_seqdb, plant_pair, plant_read
+from urmap_tpu.config import IndexConfig, MapConfig
+from urmap_tpu.index.build import build_index as jbuild
+from urmap_tpu.io import sam_native
+from urmap_tpu.map.cigar import cigars_nm_blob as jcigars
+from urmap_tpu.map.pair import PairedMapper as JPaired
+from urmap_tpu.map.pipeline import Mapper as JMapper
+from urmap_tpu_torch.index import build_index as tbuild
+from urmap_tpu_torch.map import Mapper as TMapper
+from urmap_tpu_torch.map import PairedMapper as TPaired
+from urmap_tpu_torch.map.cigar import cigars_nm_blob as tcigars
+
+FIELDS = ("mapped", "pos", "strand", "score", "second", "mapq", "gapped",
+          "ungapped", "clipped", "suspect", "lengths")
+
+
+@pytest.fixture(scope="module")
+def world():
+    rng = np.random.default_rng(17)
+    db = make_seqdb(rng, [300_000])
+    cfg = IndexConfig(slot_bits=16)
+    return rng, db, jbuild(db, cfg, backend="host"), tbuild(db, cfg)
+
+
+def _same(a, b):
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
+
+
+def _batch(tmp_path, codes, name):
+    """The native ReadBatch of ``codes`` through a FASTQ file."""
+    from urmap_tpu import alphabet
+    from urmap_tpu.io.fastq import FastqReader
+
+    fq = str(tmp_path / f"{name}.fq")
+    with open(fq, "w") as f:
+        for i, c in enumerate(codes):
+            f.write(f"@r{i}\n{alphabet.decode(c)}\n+\n{'I' * len(c)}\n")
+    return next(iter(FastqReader(fq, batch_size=len(codes))))
+
+
+def _sam_se(cigars_fn, mapper, db, batch, res):
+    blob, off, nm, _ = cigars_fn(db.codes, batch.codes, res, mapper.sc,
+                                 raw_lengths=batch.seq_len,
+                                 clip_open=mapper.sc.clip_open,
+                                 clip_rows=res.clipped)
+    return sam_native.format_single_end(batch, res, (blob, off), nm, db)
+
+
+def _tailed(rng, db, n, L, tail):
+    """Reads whose last ``tail`` bases are replaced by garbage; truth."""
+    codes = np.empty((n, L), np.uint8)
+    truth = np.empty(n, np.int64)
+    for i in range(n):
+        r = plant_read(rng, db, length=L, strand=0)
+        c = r.codes.copy()
+        c[L - tail:] = (c[L - tail:] + 1 + rng.integers(0, 3, size=tail)) % 4
+        codes[i], truth[i] = c, r.gpos
+    return codes, truth
+
+
+def test_end_clip_maps_adapter_tails_as_urmap_tpu(world, tmp_path):
+    """urmap_tpu/tests/unit/test_end_clip.py's case: 40-base garbage
+    tails on 100-base reads, plus clean, SNP and indel reads."""
+    rng, db, jidx, tidx = world
+    L, n = 100, 48
+    codes, truth = _tailed(rng, db, n // 2, L, 40)
+    other = [plant_read(rng, db, length=L, n_snps=i % 3,
+                        dels=2 if i % 4 == 0 else 0) for i in range(n // 2)]
+    codes = np.concatenate([codes, np.stack([r.codes for r in other])])
+    lengths = np.full(n, L, np.int32)
+    mcfg = MapConfig(max_read_len=L, batch_size=32, min_score_frac=0.4,
+                     end_clip=True)
+    jm, tm = JMapper(jidx, mcfg), TMapper(tidx, mcfg, device="cpu")
+    assert not tm.tb and not jm.tb
+    want = jm.map_codes(codes, lengths)
+    got = tm.map_codes(codes, lengths)
+    _same(want, got)
+    assert got.tb is None
+    assert int(((got.pos[: n // 2] == truth) & got.mapped[: n // 2]).sum()) \
+        >= n // 2 - 2
+    batch = _batch(tmp_path, codes, "se")
+    sam_t = _sam_se(tcigars, tm, db, batch, got)
+    assert sam_t == _sam_se(jcigars, jm, db, batch, want)
+    cig = [ln.split(b"\t")[5] for ln in sam_t.splitlines()]
+    assert sum(c.endswith(b"S") for c in cig[: n // 2]) >= n // 2 - 4
+
+
+def test_end_clip_turns_the_rescue_lane_and_traceback_off(world):
+    """urmap_tpu/tests/integration/test_clip_rescue.py's case: under
+    end_clip no row is flagged clipped (every DP is already clip-mode),
+    and the port launches no traceback (kernel B6's counter stays 0)."""
+    from urmap_tpu_torch.kernels import banded_dp, tb_dp
+
+    rng, db, jidx, tidx = world
+    L, n = 150, 32
+    codes, truth = _tailed(rng, db, n, L, 60)
+    lengths = np.full(n, L, np.int32)
+    mcfg = MapConfig(max_read_len=L, batch_size=32, end_clip=True)
+    tb_dp.counter.reset()
+    banded_dp.clip_counter.reset()
+    banded_dp.counter.reset()
+    got = TMapper(tidx, mcfg, device="cpu").map_codes(codes, lengths)
+    want = JMapper(jidx, mcfg).map_codes(codes, lengths)
+    _same(want, got)
+    assert not got.clipped.any()
+    assert int(((got.pos == truth) & got.mapped).sum()) >= n - 2
+    assert tb_dp.counter.plain_calls == 0 and tb_dp.counter.launches == 0
+    # the main DP ran in clip mode only
+    assert banded_dp.clip_counter.plain_calls > 0
+    assert banded_dp.counter.plain_calls == 0
+
+
+def test_paired_end_clip_as_urmap_tpu(world, tmp_path):
+    """FR pairs with a garbage tail on some mates and one mate mutated
+    every 15th base (the rescue scan, in clip mode): PairResult and the
+    paired SAM bytes equal urmap_tpu's."""
+    rng, db, jidx, tidx = world
+    L, n = 120, 40
+    pairs = [plant_pair(rng, db, length=L, frag=int(rng.integers(250, 500)),
+                        snp_every=15 if i % 5 == 0 else None)
+             for i in range(n)]
+    c1 = np.stack([p[0].codes for p in pairs])
+    c2 = np.stack([p[1].codes for p in pairs])
+    c1[1::4, L - 45:] = rng.integers(0, 4, size=(len(c1[1::4]), 45))
+    ln = np.full(n, L, np.int32)
+    mcfg = MapConfig(max_read_len=L, batch_size=32, end_clip=True)
+    jp = JPaired(JMapper(jidx, mcfg))
+    tp = TPaired(TMapper(tidx, mcfg, device="cpu"))
+    want = jp.map_pair_codes(c1, ln, c2, ln)
+    got = tp.map_pair_codes(c1, ln, c2, ln)
+    for a, b in ((want.m1, got.m1), (want.m2, got.m2)):
+        _same(a, b)
+    np.testing.assert_array_equal(want.proper, got.proper)
+    assert got.proper.mean() > 0.8
+
+    b1, b2 = _batch(tmp_path, c1, "r1"), _batch(tmp_path, c2, "r2")
+
+    def sam(cigars_fn, pm, res):
+        clip = pm.sc.clip_open
+        x1 = cigars_fn(db.codes, c1, res.m1, pm.sc, raw_lengths=b1.seq_len,
+                       clip_open=clip, clip_rows=res.m1.clipped)
+        x2 = cigars_fn(db.codes, c2, res.m2, pm.sc, raw_lengths=b2.seq_len,
+                       clip_open=clip, clip_rows=res.m2.clipped)
+        return sam_native.format_paired(
+            b1, b2, res, (x1[0], x1[1]), x1[2], x1[3], (x2[0], x2[1]),
+            x2[2], x2[3], db)
+
+    assert sam(tcigars, tp, got) == sam(jcigars, jp, want)

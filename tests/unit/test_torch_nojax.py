@@ -4,8 +4,11 @@ A subprocess makes ``import jax`` fail, imports every module of the
 port and nothing else of this repository, and maps 64 planted reads
 (half of them with an indel, so the device-traceback records are
 replayed) on the CPU through the single-end SAM path with the default
-MapConfig, then a pair batch over a row128 table. Afterwards no module named ``urmap_tpu`` or ``urmap_tpu.*``
-and no ``jax*`` may be loaded. The machine with the card has no JAX.
+MapConfig, then a pair batch over a row128 table, then the command line
+(``cli.main`` -make_ufi and -map on the CPU; ``cli``, ``__main__`` and
+``dist.multihost`` imported by name). Afterwards no module named
+``urmap_tpu`` or ``urmap_tpu.*`` and no ``jax*`` may be loaded. The
+machine with the card has no JAX.
 """
 
 import os
@@ -74,6 +77,22 @@ ln = np.full(32, 150, np.int32)
 pres = PairedMapper(m128).map_pair_codes(c1, ln, c2, ln)
 assert pres.proper.all() and (pres.m1.pos == p1).all()
 assert (pres.m2.pos == p1 + 150).all() and (pres.m2.strand == 1).all()
+# the command line: -make_ufi, then -map on the CPU
+import urmap_tpu_torch.__main__, urmap_tpu_torch.dist.multihost
+from urmap_tpu_torch import cli
+with tempfile.TemporaryDirectory() as d:
+    fa, fq = os.path.join(d, "g.fa"), os.path.join(d, "r.fq")
+    with open(fa, "w") as f:
+        f.write(">chr1\n" + alphabet.decode(db.codes[db.starts[0]:]) + "\n")
+    with open(fq, "w") as f:
+        for i, c in enumerate(codes):
+            f.write(f"@r{i}\n{alphabet.decode(c)}\n+\n{'I' * 150}\n")
+    ufi, sam = os.path.join(d, "g.ufi"), os.path.join(d, "o.sam")
+    assert cli.main(["-make_ufi", fa, "-output", ufi]) == 0
+    assert cli.main(["-map", fq, "-ufi", ufi, "-samout", sam, "-batch", "64",
+                     "-quiet"], device="cpu") == 0
+    body = [ln for ln in open(sam) if not ln.startswith("@")]
+    assert len(body) == 64 and sum("3D" in ln for ln in body) == 16
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("jax", "jaxlib", "urmap_tpu")
     or m.startswith(("jax.", "jaxlib.", "urmap_tpu."))))

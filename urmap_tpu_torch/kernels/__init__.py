@@ -6,25 +6,55 @@ version. There is no other fallback: no preflight that swaps a failed
 kernel for its plain version, no environment switch, no ``try`` around
 a build or a launch. Each wrapper counts what it ran (``Counter``), so a
 run can show that the main path went through the kernels.
+
+The one map that runs on the CPU by design beside a card's (the wide
+second pass, map.pipeline.WideSecondPass, as the reference runs it on
+its host) counts its plain calls apart, under ``host_pass()``: a card
+run's ``plain_calls`` stay 0 with the second pass on.
 """
 
 from __future__ import annotations
 
+import threading
+
+_scope = threading.local()
+
+
+class host_pass:
+    """``with host_pass():`` plain calls made in this thread inside the
+    block count as ``host_pass_calls``, not ``plain_calls``."""
+
+    def __enter__(self):
+        self._prev = getattr(_scope, "host", False)
+        _scope.host = True
+
+    def __exit__(self, *exc):
+        _scope.host = self._prev
+
 
 class Counter:
-    """Launches of a kernel and calls of its plain version. ``widths``
-    splits the launches by output width, for the wrappers that record
-    it (the window fetches: one kernel each, the verify, DP and rescue
-    shapes)."""
+    """Launches of a kernel and calls of its plain version (outside and
+    inside ``host_pass()``). ``widths`` splits the launches by a size
+    the wrapper records: the window fetches' output width (one kernel
+    each, the verify, DP and rescue shapes), B1's candidate count."""
 
     def __init__(self, name: str):
         self.name = name
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+        self.host_pass_calls = 0
         self.widths: dict[int, int] = {}
+
+    def plain(self) -> None:
+        with self._lock:
+            if getattr(_scope, "host", False):
+                self.host_pass_calls += 1
+            else:
+                self.plain_calls += 1
 
     def launched(self, width: int | None = None) -> None:
         self.launches += 1
@@ -54,3 +84,6 @@ def counters() -> list[Counter]:
 # launch
 OFF_PATH = ("row128_window_fetch", "banded_semiglobal",
             "banded_semiglobal_clip", "rotate_narrow", "tb_bits")
+# under end_clip every DP runs in clip mode (the clip-rescue lane is off)
+# and the device traceback is off (map.pipeline.tb_enabled)
+OFF_PATH_END_CLIP = OFF_PATH + ("banded_dp", "tb_dops")

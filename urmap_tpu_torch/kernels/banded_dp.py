@@ -77,14 +77,14 @@ def banded_from_windows(windows: torch.Tensor, reads: torch.Tensor,
     """→ (scores, d0, d1, ungapped), each int32[N]; see map.dp."""
     cnt = counter if clip_open is None else clip_counter
     if not windows.is_cuda:
-        cnt.plain_calls += 1
+        cnt.plain()
         return _plain(windows, reads, lengths, hw=hw, sc=sc,
                       clip_open=clip_open)
     _build.load()
     outs = torch.ops.urmap.banded_dp(windows, reads, lengths, hw, sc.match,
                                      sc.mismatch, sc.gap_open, sc.gap_extend,
                                      clip_open)
-    cnt.launched()
+    cnt.launched(windows.shape[0])
     return outs
 
 
@@ -94,7 +94,7 @@ def banded_semiglobal(genome: torch.Tensor, cand_starts: torch.Tensor,
     """→ (scores, d0, ungapped, span), each int32[N]; see map.dp."""
     cnt = semiglobal_counter if clip_open is None else semiglobal_clip_counter
     if not genome.is_cuda:
-        cnt.plain_calls += 1
+        cnt.plain()
         return _plain_semiglobal(genome, cand_starts, reads, lengths, hw=hw,
                                  sc=sc, clip_open=clip_open)
     _build.load()

@@ -58,7 +58,7 @@ def row128_fetch(positions: torch.Tensor, flat_starts: torch.Tensor,
         if positions.dim() == 2 and row_words != positions.shape[1]:
             raise ValueError(f"table: rows of {positions.shape[1]} words, "
                              f"row_words {row_words}")
-        fetch_counter.plain_calls += 1
+        fetch_counter.plain()
         return _aligned_rows_fetch(positions.reshape(-1), flat_starts, width,
                                    row_words)
     _build.load()
@@ -76,7 +76,7 @@ def row128_window_fetch(table: torch.Tensor, starts: torch.Tensor,
     if not table.is_cuda:
         from urmap_tpu_torch.genome_pack import row128_window_fetch as plain
 
-        window_counter.plain_calls += 1
+        window_counter.plain()
         return plain(table, starts, width)
     _build.load()
     out = torch.ops.urmap.row128_window_fetch(table, starts, width)
@@ -92,7 +92,7 @@ def window_codes(ginter: torch.Tensor, base_off: int, starts: torch.Tensor,
     if not ginter.is_cuda:
         from urmap_tpu_torch.genome_pack import gather_codes_plain
 
-        codes_counter.plain_calls += 1
+        codes_counter.plain()
         return gather_codes_plain(ginter, base_off, starts, length)
     _build.load()
     out = torch.ops.urmap.window_codes(ginter, base_off, starts, length)
@@ -110,7 +110,7 @@ def window_mismatches(ginter: torch.Tensor, base_off: int,
     if not ginter.is_cuda:
         from urmap_tpu_torch.genome_pack import mismatch_counts_plain
 
-        mismatch_counter.plain_calls += 1
+        mismatch_counter.plain()
         return mismatch_counts_plain(ginter, base_off, starts, rpacked,
                                      rnplane, lengths)
     _build.load()
@@ -134,7 +134,7 @@ def rotate_narrow(rows: torch.Tensor, off: torch.Tensor,
                   width: int) -> torch.Tensor:
     """→ int32[N, width]; see rotate_narrow_plain."""
     if not rows.is_cuda:
-        rotate_counter.plain_calls += 1
+        rotate_counter.plain()
         return rotate_narrow_plain(rows, off, width)
     _build.load()
     out = torch.ops.urmap.rotate_narrow(rows, off, width)

@@ -37,7 +37,7 @@ def seed_front(a: torch.Tensor, b: torch.Tensor, lengths: torch.Tensor,
     Q] and cnt int32[2B, Q], each seed's CSR run in ``offsets``, packed
     with ``obase`` when given). See map.seed.seed_front_plain."""
     if not a.is_cuda:
-        counter.plain_calls += 1
+        counter.plain()
         return seed_front_plain(a, b, lengths, L, k=k, q=q,
                                 slot_bits=slot_bits, offsets=offsets,
                                 obase=obase, cnt_bits=cnt_bits,

@@ -64,7 +64,7 @@ def tb_dops_from_windows(windows: torch.Tensor, reads: torch.Tensor,
     """B6 → (score int32[N], dops int32[DWp, N], walk_ok bool[N]); see
     map.tb."""
     if not windows.is_cuda:
-        counter.plain_calls += 1
+        counter.plain()
         return _plain.tb_dops_from_windows(windows, reads, lengths, hw=hw,
                                            sc=sc)
     _build.load()
@@ -79,7 +79,7 @@ def tb_from_windows(windows: torch.Tensor, reads: torch.Tensor,
     """B7 → (score int32[N], bend int32[N], bits int32[NWORDS, N]); see
     map.tb."""
     if not windows.is_cuda:
-        bits_counter.plain_calls += 1
+        bits_counter.plain()
         return _plain.tb_from_windows(windows, reads, lengths, hw=hw, sc=sc)
     _build.load()
     outs = torch.ops.urmap.tb_bits(windows, reads, lengths, hw, sc.match,

@@ -22,7 +22,7 @@ MAX_M = 4096  # candidates a read (Q x P) the kernel takes
 def vote(cand: torch.Tensor, *, v: int):
     """cand int32[N, M] → (top_cand int32[N, V], votes int32[N, V])."""
     if not cand.is_cuda:
-        counter.plain_calls += 1
+        counter.plain()
         return vote_top_candidates(cand, v=v)
     _build.load()
     top, votes = torch.ops.urmap.vote(cand, v)

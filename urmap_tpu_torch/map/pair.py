@@ -469,9 +469,31 @@ class PairedMapper:
 
     def second_pass(self, codes1, lengths1, codes2, lengths2,
                     res: PairResult) -> PairResult:
-        """The wide second pass is not ported (the wrapped Mapper raises
-        on ``second_pass_p``): ``res`` comes back unchanged, as from the
-        reference when its mapper has no second pass."""
+        """Per-mate wide-gather recovery (pipeline.Mapper.second_pass,
+        on the host CPU): mates still unmapped or suspect after pairing
+        and rescue are re-mapped, then every pair a re-map moved has its
+        concordance re-derived (_recheck_pairs): a recovered mate in FR
+        orientation inside the fragment window makes its pair proper,
+        a moved mate that breaks a proper pair demotes it. ``res``
+        unchanged when the wrapped mapper has no second pass."""
+        if getattr(self.mapper, "second", None) is None:
+            return res
+        sp = self.mapper.second_pass
+
+        def snap(m):
+            return (m.mapped.copy(), m.pos.copy(), m.strand.copy())
+
+        s1, s2 = snap(res.m1), snap(res.m2)
+        res = PairResult(m1=sp(codes1, lengths1, res.m1),
+                         m2=sp(codes2, lengths2, res.m2),
+                         proper=res.proper)
+
+        def moved(m, s):
+            return (m.mapped != s[0]) | (m.pos != s[1]) | (m.strand != s[2])
+
+        touched = moved(res.m1, s1) | moved(res.m2, s2)
+        if touched.any():
+            self._recheck_pairs(codes1, codes2, res, touched)
         return res
 
     def _recheck_pairs(self, codes1, codes2, res: PairResult,

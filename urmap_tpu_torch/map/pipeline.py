@@ -127,7 +127,13 @@ def card_limits(mcfg: MapConfig) -> list[str]:
     and the read block that one candidate's shared memory holds; B6 (the
     device traceback, when tb_enabled) the read block that one winner's
     holds; B4 (the vote) Q x P candidates a read; the seed front the
-    read block its four reads a block hold."""
+    read block its four reads a block hold.
+
+    Not a kernel's limit, so not listed: clip mode's packed scores
+    overflow int32 once L + 2 * hw + 1 > 2,048 (``NEG * S``), in the
+    plain versions and in urmap_tpu alike. Under ``end_clip`` every DP
+    of the path runs in clip mode, so such a read block maps wrongly
+    there on every device, as in the reference (ROADMAP.md C)."""
     from urmap_tpu_torch.kernels import banded_dp, seed_slots, tb_dp, vote
 
     hw, L = mcfg.band_halfwidth, mcfg.max_read_len
@@ -602,6 +608,103 @@ def revcomp_strand_codes(codes: np.ndarray, result) -> np.ndarray:
     return out
 
 
+class WideSecondPass:
+    """The wide-gather recovery pass (MapConfig.second_pass_p), a port
+    of urmap_tpu/map/pipeline.py:WideSecondPass: a second map program
+    over tables recapped at the wider cap ``second_pass_p``, in batches
+    of 512 unpacked reads, without the device traceback. It re-maps the
+    rows the first pass left unmapped or flagged suspect; everything
+    else keeps the first pass's call.
+
+    It runs on the host CPU by design, as the reference's does (there
+    the program is jitted for jax.devices("cpu") with use_pallas=False):
+    the wide tables live in host RAM, not on the card, and the pass
+    overlaps the card's next batch in the CLI's worker threads. So its
+    tensors are CPU tensors and every stage runs its plain version,
+    counted apart from a card path's (kernels.host_pass). This is the
+    reference's semantics, not a fallback: a Mapper on a CUDA device
+    still launches every kernel of its own path or raises."""
+
+    _BATCH = 512
+
+    def __init__(self, index, mcfg: MapConfig, sc: ScoreConfig):
+        import dataclasses
+
+        from urmap_tpu_torch.index.store import (load_prepared,
+                                                 prepare_tables,
+                                                 tables_from_numpy)
+
+        sp = mcfg.second_pass_p
+        if sp < mcfg.positions_per_seed:
+            raise ValueError(f"second_pass_p {sp} narrower than the first "
+                             f"pass ({mcfg.positions_per_seed})")
+        self.icfg = index.config
+        self.mcfg = mcfg
+        self.sc = sc
+        self.device = torch.device("cpu")
+        prep = load_prepared(index, sp) or prepare_tables(index, sp)
+        self._tables = tables_from_numpy(*prep, self.device)
+        if self._tables["gather_tier"] is not None:
+            raise NotImplementedError(
+                "the tiered gather (URMAP_TIER_GATHER=1) is not ported "
+                "(ROADMAP.md A.3)")
+        self._cfg = dataclasses.replace(mcfg, positions_per_seed=sp,
+                                        batch_size=self._BATCH,
+                                        second_pass_p=0)
+
+    def _map(self, codes: np.ndarray, lengths: np.ndarray) -> dict:
+        from urmap_tpu_torch.kernels import host_pass
+
+        with host_pass():
+            out = map_batch_device(self._tables, torch.from_numpy(codes),
+                                   torch.from_numpy(lengths),
+                                   icfg=self.icfg, mcfg=self._cfg,
+                                   sc=self.sc)
+            return unpack_out(pack_out(out).numpy())
+
+    def __call__(self, codes: np.ndarray, lengths,
+                 result: MapResult) -> MapResult:
+        lengths = np.asarray(lengths)
+        sel = ~result.mapped
+        if result.suspect is not None:
+            # suspect rows: a poor-scoring winner on subsampled evidence;
+            # the wide gather usually surfaces the true copy
+            sel = sel | result.suspect
+        rows = np.nonzero(sel & (lengths[: len(result.mapped)]
+                                 >= self.icfg.k))[0]
+        if rows.size == 0:
+            return result
+        L, SPB = self.mcfg.max_read_len, self._BATCH
+        for s in range(0, rows.size, SPB):
+            r = rows[s : s + SPB]
+            c = np.full((SPB, L), alphabet.READ_N, np.uint8)
+            c[: r.size, : codes.shape[1]] = codes[r]
+            ln = np.zeros(SPB, np.int32)
+            ln[: r.size] = lengths[r]
+            out = self._map(c, ln)
+            got = out["mapped"][: r.size]
+            pr = r[got]
+            if pr.size == 0:
+                continue
+            src = np.nonzero(got)[0]
+            result.mapped[pr] = True
+            result.pos[pr] = out["pos"][src]
+            result.strand[pr] = out["strand"][src]
+            result.score[pr] = out["score"][src]
+            result.second[pr] = out["second"][src]
+            result.mapq[pr] = out["mapq"][src]
+            result.gapped[pr] = out["gapped"][src]
+            if result.ungapped is not None:
+                result.ungapped[pr] = out["ungapped"][src]
+            # clip-rescued recoveries need the clip-mode host traceback
+            if result.clipped is not None:
+                result.clipped[pr] = out["clipped"][src]
+            if result.suspect is not None:
+                # still suspect at the wide gather: the flag stays
+                result.suspect[pr] = out["suspect"][src]
+        return result
+
+
 class Mapper:
     """Holds the device tables and maps host batches on one device.
 
@@ -615,7 +718,10 @@ class Mapper:
     layout (classic, aligned or row128, with or without packed
     offsets) comes with the prepared tables. ``prepared``: (host
     tables, meta) from either package's prepare_tables /
-    load_prepared, in place of preparing them from ``index`` here."""
+    load_prepared, in place of preparing them from ``index`` here.
+    ``mcfg.end_clip`` runs every DP in clip mode and turns the device
+    traceback off; ``mcfg.second_pass_p`` adds the WideSecondPass,
+    which ``second_pass`` (and ``map_codes``) apply on the host CPU."""
 
     def __init__(self, index, mcfg: MapConfig | None = None,
                  sc: ScoreConfig | None = None, *, device="cuda",
@@ -632,12 +738,6 @@ class Mapper:
         self.sc = sc or ScoreConfig()
         # device traceback records: the one shared predicate
         self.tb = tb_enabled(self.mcfg)
-        if self.mcfg.second_pass_p:
-            raise NotImplementedError(
-                "the wide second pass is not ported (ROADMAP.md A.9)")
-        if self.mcfg.end_clip:
-            raise NotImplementedError(
-                "end-clip mode (-endclip) is not ported (ROADMAP.md A.8)")
         p = self.mcfg.positions_per_seed
         if prepared is None:
             prepared = load_prepared(index, p) or prepare_tables(index, p)
@@ -650,6 +750,19 @@ class Mapper:
             raise NotImplementedError(
                 "the tiered gather (URMAP_TIER_GATHER=1) is not ported "
                 "(ROADMAP.md A.3)")
+        self.second = (WideSecondPass(index, self.mcfg, self.sc)
+                       if self.mcfg.second_pass_p else None)
+
+    def second_pass(self, codes: np.ndarray, lengths,
+                    result: MapResult) -> MapResult:
+        """Re-map ``result``'s unmapped and suspect rows through the
+        wide second pass on the host CPU and patch the recovered calls
+        in place (no-op when second_pass_p is 0). Thread-safe: the CLI
+        calls it from its formatting workers, beside the next batch's
+        dispatch to the card."""
+        if self.second is None:
+            return result
+        return self.second(codes, lengths, result)
 
     def _pad_full(self, codes: np.ndarray, lengths: np.ndarray):
         """Pad to the full [batch_size, max_read_len] block (rows of
@@ -718,9 +831,11 @@ class Mapper:
     def map_codes(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:
         B = codes.shape[0]
         bs = self.mcfg.batch_size
-        outs = [self.finish_batch(self.start_batch(codes[s : s + bs],
-                                                   lengths[s : s + bs]),
-                                  lengths[s : s + bs])
+        outs = [self.second_pass(
+                    codes[s : s + bs], lengths[s : s + bs],
+                    self.finish_batch(self.start_batch(codes[s : s + bs],
+                                                       lengths[s : s + bs]),
+                                      lengths[s : s + bs]))
                 for s in range(0, B, bs)]
         if len(outs) == 1:
             return outs[0]
