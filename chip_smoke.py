@@ -89,7 +89,36 @@ Phases, each printing one JSON line:
                CPU PairedMapper on 1,024 pairs); -secondpass 32 over
                16,384 reads (the plain
                run's SAM; its CPU calls counted as host-pass calls); and
-               one `python -m urmap_tpu_torch -map` of 4,096 reads.
+               one `python -m urmap_tpu_torch -map` of 4,096 reads;
+ 11. tier    — URMAP_TIER_GATHER=1 over phase 4's aligned tables (the
+               tier prepare_tables picked, or 4 set here): phase 4's
+               reads with MapResult, live traceback records and SAM bytes
+               equal to phase 4's, B5's row entry at the tier width once
+               a batch plus one full-width launch an overflow round
+               (rounds a batch, the share of seeds over the tier), device
+               busy ms and launches of one batch tier against untiered in
+               turns, and the host syncs of that batch and of its gather
+               alone each way, by site, counted under
+               torch.cuda.set_sync_debug_mode; the first 2,048 pairs of phase
+               7 through a PairedMapper on the aligned tables, tiered =
+               untiered;
+ 12. spill   — phase 4's index built again through the disk radix spill
+               (spill_threshold 2^20 words) under build/chip_smoke/spill,
+               in one host chunk and in chunks of 2^23 words: offsets and
+               positions equal to the in-RAM build's, each build's
+               seconds, the bytes on disk, the directory empty;
+ 13. scale   — a 2^31 + 2^26-base genome built in memory: eight N
+               chromosomes up to 2^31 - 2^24 (sequence the time limit
+               cannot index), then ~84 Mbp of phase 4's generator in
+               three chromosomes, the first straddling 2^31; the spill
+               build at slot_bits 27, the layout prepare_tables picks
+               (row128), 65,536 reads with phase 4's mix (256 pinned
+               across 2^31): the slice's checks, the correct fraction
+               past 2^31, card = CPU Mapper on the first 1,024 reads;
+               set-up seconds by stage, card bytes, peak host RSS.
+Phase 3 also holds B5's row entry at the tier widths 4 and 8 and over a
+table of 2^31 + 2^24 words (8.7 GB, freed before phase 4), and the seed
+front with packed offsets whose obase passes 2^31.
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and
 the final {"ok": true, ...} line. Any failed check exits non-zero.
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -557,8 +586,15 @@ def shape_cases(dev, rng, n_reads: int, sc) -> dict:
     fl = put(lens)
     nw = -(-L_MAX // 16)
     tabs = front_tables(rng, 27 if n_reads >= 2 * B else 20, dev)
+    # the packed offsets of a table past 2^31 words: the same deltas over
+    # block bases raised by 2^31 (uint32), so every decoded start passes
+    # 2^31 and must come out as a uint32 value
+    off, ob, bits = tabs["packed"]
+    tabs["packed_past_2^31"] = (off, (ob.long() + (1 << 31)).to(torch.int32),
+                                bits)
     for name, key in (("seed_front", "plain"),
-                      ("seed_front_packed", "packed")):
+                      ("seed_front_packed", "packed"),
+                      ("seed_front_obase_past_2^31", "packed_past_2^31")):
         off, ob, (cb, bb) = tabs[key]
         kw = dict(k=K, q=Q, slot_bits=27 if n_reads >= 2 * B else 20,
                   offsets=off, obase=ob, cnt_bits=cb, block_bits=bb)
@@ -814,6 +850,46 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
         lambda: tbmod.tb_from_windows(win, tb_reads, ln, hw=HW, sc=sc),
         (win, tb_reads, ln), TB_C * L_MAX * W * 15)
     cases.update(shape_cases(dev, rng, n_reads, sc))
+
+    # The row entry as the tiered gather's first pass runs it: the 1-D
+    # (aligned) table at width = row_words = 4 and 8, one start a seed
+    # (2B x Q); beside it ``row128_fetch`` above, the untiered width 16.
+    # Then a [R, 128] table of 2^31 + 2^24 words (8.7 GB, a human
+    # genome's row128 positions) filled on the card from this phase's
+    # generator, a third of the starts past 2^31 and some in the last
+    # row. Bytes: the starts, the used words and the output.
+    def row_case(name, tab, st, width, rw):
+        n, M = st.shape[0], tab.numel()
+        s = st & 0xFFFF_FFFF
+        used = int((rw - s % rw).clamp(max=width).sum())
+        cases[name] = (
+            lambda: (lane_rotate.row128_fetch(tab, st, width, row_words=rw),),
+            lambda: (seedmod._aligned_rows_fetch(tab.reshape(-1), st, width,
+                                                 rw),),
+            (tab, st), 0, n * 8 + used * 4 + n * width * 4)
+        views = tab.view(-1).unfold(0, width, 1)
+        sk = s.clamp(max=M - width)
+        library[name] = lambda: (views[sk],)
+        fetch_shapes[name] = {"width": width, "row_words": rw,
+                              "table_words": M, "used_words_read": used}
+
+    tier_starts = put(starts_of(n_reads * Q))
+    for t in (4, 8):
+        row_case(f"row128_fetch_tier{t}", table.view(-1), tier_starts, t, t)
+    M2 = (1 << 31) + (1 << 24)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    big = torch.randint(-(1 << 31), (1 << 31) - 1, (M2 // 128, 128),
+                        dtype=torch.int32, device=dev, generator=gen)
+    nb = n_reads * Q
+    st = rng.integers(0, M2, size=nb)
+    st[: nb // 3] = rng.integers(1 << 31, M2, size=nb // 3)
+    st[-64:] = rng.integers(M2 - 128, M2, size=64)
+    st[:6] = [(1 << 31) - 1, 1 << 31, (1 << 31) + 127, M2 - 1, M2 - 16, 0]
+    big_starts = put(st.astype(np.int64))
+    row_case("row128_fetch_past_2^31", big, big_starts, P, 128)
+    fetch_shapes["row128_fetch_past_2^31"]["starts_past_2^31"] = int(
+        (big_starts >= (1 << 31)).sum())
     recs = {}
     for name, (kern, plain, inputs, ops, *moved) in cases.items():
         got = kern()
@@ -880,9 +956,12 @@ def write_fasta(path: str, codes: np.ndarray, label: str = "chr21") -> None:
         f.write(chars[full:].tobytes() + b"\n")
 
 
-def plant_reads(rng, db, n: int):
+def plant_reads(rng, db, n: int, span=None, pin=None):
     """Planted 150 bp reads from both strands: 1% SNPs per base, 5% with
-    a 1-8 bp indel, 1% with a 65-75 bp adapter tail, 1% random junk.
+    a 1-8 bp indel, 1% with a 65-75 bp adapter tail, 1% random junk,
+    inside the first chromosome or the global range ``span`` (lo, hi),
+    away from N runs and separators; the first len(``pin``) reads start
+    at the global positions ``pin``.
     Returns (codes uint8[n, 150], truth_pos int64 (-1 junk), strand).
 
     The tails are long enough that the full-read score falls below
@@ -895,16 +974,18 @@ def plant_reads(rng, db, n: int):
     from urmap_tpu_torch import alphabet
 
     g = db.codes
-    lo, hi = int(db.starts[0]), int(db.starts[0] + db.lengths[0])
-    isn = np.concatenate([[0], np.cumsum(g >= 4)])
+    lo, hi = span or (int(db.starts[0]), int(db.starts[0] + db.lengths[0]))
     kind = rng.choice(4, size=n, p=[0.93, 0.05, 0.01, 0.01])
     pos = np.zeros(n, np.int64)
     todo = np.arange(n)
     while todo.size:
         p = rng.integers(lo, hi - READ_LEN - 16, size=todo.size)
-        ok = isn[p + READ_LEN + 16] - isn[p] == 0
+        ok = ~(g[p[:, None] + np.arange(READ_LEN + 16)[None, :]] >= 4) \
+            .any(axis=1)
         pos[todo[ok]] = p[ok]
         todo = todo[~ok]
+    if pin is not None:
+        pos[: len(pin)] = pin
     idx = pos[:, None] + np.arange(READ_LEN)[None, :]
     codes = g[idx].copy()
     for i in np.nonzero(kind == 1)[0]:
@@ -1147,10 +1228,11 @@ def read_counters() -> dict:
 
 
 def reset_counters() -> None:
-    from urmap_tpu_torch.kernels import counters
+    from urmap_tpu_torch.kernels import counters, tier_rounds
 
     for c in counters():
         c.reset()
+    tier_rounds.reset()
 
 
 def check_counters(counts: dict, what: str, end_clip: bool = False) -> None:
@@ -2234,6 +2316,400 @@ def phase_cli(dev, w: dict, aligned: dict, smi: str, work: str) -> dict:
     return paths
 
 
+# ---- phases 11-13: the tiered gather, the spill build, past 2^31 --------
+
+def read_tier_rounds() -> dict:
+    from urmap_tpu_torch.kernels import tier_rounds
+
+    return {"calls": tier_rounds.calls, "rounds": tier_rounds.rounds}
+
+
+def count_syncs(fn) -> dict:
+    """The host syncs one call of ``fn`` makes, as the card reports them
+    under torch.cuda.set_sync_debug_mode("warn"), by site ("file:line"
+    of the Python line that made each): each synchronizing operation (a
+    tensor read back by the host, a nonzero, a blocking copy to the
+    host) warns once."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for c in caught:
+        if "synchronizing CUDA operation" in str(c.message):
+            at = f"{os.path.relpath(c.filename, ROOT)}:{c.lineno}"
+            sites[at] = sites.get(at, 0) + 1
+    return sites
+
+
+def batch_profile_turns(mappers: dict, b, order, work: str) -> dict:
+    """torch.profiler over one start_batch + finish_batch of each named
+    Mapper, in the turns ``order`` → name → list of (device busy ms,
+    device launches)."""
+    out = {k: [] for k in mappers}
+    for i, name in enumerate(order):
+        m = mappers[name]
+        pk = m.prepack(b.codes, b.lengths)
+        prof = profile_call(lambda: m.finish_batch(
+            m.start_batch(b.codes, b.lengths, prepacked=pk), b.lengths),
+            os.path.join(work, f"profile_{name}_{i}.txt"))
+        out[name].append([prof["device_busy_ms"], prof["device_launches"]])
+    return out
+
+
+def phase_tier(dev, w: dict, aligned: dict, untiered, smi: str,
+               work: str) -> dict:
+    """Phase 11: the tiered gather (URMAP_TIER_GATHER=1) over phase 4's
+    aligned tables and reads, and over the first N_CPU_PAIRS pairs of
+    phase 7 on the aligned tables: results, live traceback records and
+    SAM bytes equal to the untiered runs'; B5 at the tier width once a
+    batch plus one full-width launch an overflow round."""
+    import torch
+
+    from urmap_tpu_torch.io.fastq import FastqReader
+    from urmap_tpu_torch.kernels import seed_slots
+    from urmap_tpu_torch.map import Mapper
+    from urmap_tpu_torch.map.pair import PairedMapper
+    from urmap_tpu_torch.map.seed import gather_runs
+
+    ht, meta = w["prepared"]
+    check(meta["layout"] == "aligned", f"phase 4's layout {meta['layout']}")
+    tier, forced = meta["gather_tier"], meta["gather_tier"] is None
+    if forced:
+        # as tests/integration/test_torch_pipeline.py sets it
+        tier, meta = 4, {**meta, "gather_tier": 4}
+    os.environ["URMAP_TIER_GATHER"] = "1"
+    try:
+        mapper = Mapper(w["index"], untiered.mcfg, untiered.sc, device=dev,
+                        prepared=(ht, meta))
+    finally:
+        del os.environ["URMAP_TIER_GATHER"]
+    check(mapper.gather_tier == tier and untiered.gather_tier is None,
+          "the tier switch of the Mappers")
+    n = w["n_half"]
+    run = run_single_end(dev, w, mapper, "tier", w["reads_half"], n, B, smi,
+                         os.path.join(work, "out_tier.sam"))
+    rounds = read_tier_rounds()
+    counts = run["counts"]
+    nb = len(run["results"])
+    widths = counts["row128_fetch"].get("widths", {})
+    diff = differing(run["res"], aligned["res"])
+    tb_diff = sorted({k for a, b in zip(run["results"], aligned["results"])
+                      for k in tb_differing(a.tb, b.tb)})
+    # the share of valid seeds over the tier, from the seed front of the
+    # first batch (a launch outside the counted run)
+    b = next(iter(FastqReader(w["reads_half"], batch_size=B)))
+    pk, nm, lens, _ = mapper.prepack(b.codes, b.lengths)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    _rp, _rn, offs, valid, start, cnt = seed_slots.seed_front(
+        put(pk), put(nm), put(lens), mapper.mcfg.max_read_len, k=K, q=Q,
+        slot_bits=w["index"].config.slot_bits,
+        offsets=mapper.tables["offsets"])
+    over = float(((cnt > tier) & valid).sum() / valid.sum())
+    prof = batch_profile_turns({"untiered": untiered, "tier": mapper}, b,
+                               ("untiered", "tier", "tier", "untiered"),
+                               work)
+    # the host syncs of that batch and of its gather alone, each way, and
+    # the tier's rounds in each
+    syncs = {}
+    for name, m in (("untiered", untiered), ("tier", mapper)):
+        pk1 = m.prepack(b.codes, b.lengths)
+        reset_counters()
+        sites = count_syncs(lambda: m.finish_batch(
+            m.start_batch(b.codes, b.lengths, prepacked=pk1), b.lengths))
+        syncs[name] = sum(sites.values())
+        syncs[f"{name}_sites"] = sites
+    syncs["tier_rounds"] = read_tier_rounds()["rounds"]
+    for name, t in (("untiered", None), ("tier", tier)):
+        reset_counters()
+        sites = count_syncs(lambda: gather_runs(
+            mapper.tables["positions"], start, cnt, offs, valid, p=P,
+            csr_aligned=True, tier=t))
+        syncs[f"gather_{name}"] = sum(sites.values())
+        syncs[f"gather_{name}_sites"] = sites
+    syncs["gather_tier_rounds"] = read_tier_rounds()["rounds"]
+
+    # the first pairs of phase 7 through PairedMapper on the aligned
+    # tables, tiered and untiered
+    reset_counters()
+    pt, pt_sam = map_pairs_fastq(PairedMapper(mapper), w["db"], w["r1_cpu"],
+                                 w["r2_cpu"])
+    pair_rounds = read_tier_rounds()
+    pair_counts = read_counters()
+    pu, pu_sam = map_pairs_fastq(PairedMapper(untiered), w["db"],
+                                 w["r1_cpu"], w["r2_cpu"])
+    a1, a2, ap = concat_pairs(pt)
+    c1, c2, cp = concat_pairs(pu)
+    pdiff = [f"m1.{f}" for f in differing(a1, c1)] \
+        + [f"m2.{f}" for f in differing(a2, c2)] \
+        + ([] if np.array_equal(ap, cp) else ["proper"])
+    ptb = sorted({f"{m}.{k}" for x, y in zip(pt, pu) for m in ("m1", "m2")
+                  for k in tb_differing(getattr(x, m).tb, getattr(y, m).tb)})
+    emit({"phase": "tier_vs_untiered", "gpu": smi, "tier": tier,
+          "tier_set_by_smoke": forced, "reads": n, "batches": nb,
+          "fields_differing": diff, "tb_keys_differing": tb_diff,
+          "sam_identical": run["sam"] == aligned["sam"],
+          "row128_fetch_widths": widths,
+          "overflow_rounds_per_batch": rounds["rounds"] / nb,
+          "host_syncs_one_batch": syncs,
+          "seeds_over_tier_share": over,
+          "profile_busy_ms_launches": prof,
+          "pairs": N_CPU_PAIRS, "pair_fields_differing": pdiff,
+          "pair_tb_keys_differing": ptb, "pair_sam_identical": pt_sam == pu_sam,
+          "pair_overflow_rounds_per_batch": pair_rounds["rounds"]
+          / max(pair_rounds["calls"], 1),
+          "pair_row128_fetch_widths": pair_counts["row128_fetch"].get(
+              "widths", {})})
+    check(not diff, f"tier and untiered differ in {diff}")
+    check(not tb_diff, f"tier and untiered tb records differ in {tb_diff}")
+    check(run["sam"] == aligned["sam"], "tier and untiered: SAM bytes differ")
+    check(rounds["calls"] == nb, f"tier calls {rounds} != batches {nb}")
+    check(widths.get(tier, 0) == nb
+          and counts["row128_fetch"]["launches"] == nb + rounds["rounds"]
+          and widths.get(P, 0) == rounds["rounds"],
+          f"row128_fetch launches {counts['row128_fetch']} against {nb} "
+          f"batches and {rounds['rounds']} overflow rounds")
+    check(not pdiff and not ptb, f"paired tier and untiered differ in "
+          f"{pdiff + ptb}")
+    check(pt_sam == pu_sam, "paired tier and untiered: SAM bytes differ")
+    check_counters(pair_counts, "the paired tier run")
+    return {"counts": counts, "batches": nb, **rounds,
+            "host_syncs_one_batch": syncs}
+
+
+# phase 12's small chunk: the chr21-length genome in several chunks
+SPILL_SMALL_CHUNK = 1 << 23
+
+
+def phase_spill(w: dict, work: str) -> None:
+    """Phase 12: phase 4's index built again through the disk radix spill
+    (spill_threshold 2^20 words, 256 buckets on disk), in one host chunk
+    and in chunks of SPILL_SMALL_CHUNK words, each equal to the in-RAM
+    build; the bytes the buckets held on disk, and the spill directory
+    gone afterwards."""
+    import shutil
+
+    from urmap_tpu_torch.index import build as bmod
+
+    spill_dir = os.path.join(work, "spill")
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    os.makedirs(spill_dir)
+    cfg = w["index"].config
+    t0 = time.perf_counter()
+    inram = bmod.build_index(w["db"], cfg)
+    inram_s = time.perf_counter() - t0
+    on_disk = []
+    real = bmod._RadixSpill.finalize
+
+    def measured(self, *a):
+        for f in self.files:
+            f.flush()
+        on_disk.append(sum(os.path.getsize(p) for p in self.paths))
+        return real(self, *a)
+
+    chunks = []
+    real_add = bmod._RadixSpill.add_partitioned
+
+    def counted(self, *a):
+        chunks[-1] += 1
+        return real_add(self, *a)
+
+    bmod._RadixSpill.finalize = measured
+    bmod._RadixSpill.add_partitioned = counted
+    spilled, seconds, same = {}, {}, {}
+    try:
+        # the default chunk (one), then SPILL_SMALL_CHUNK words a chunk
+        for name, chunk in (("one_chunk", bmod.HOST_CHUNK),
+                            ("chunked", SPILL_SMALL_CHUNK)):
+            chunks.append(0)
+            t1 = time.perf_counter()
+            spilled[name] = bmod.build_index(
+                w["db"], cfg, chunk=chunk, spill_threshold=1 << 20,
+                spill_dir=spill_dir)
+            seconds[name] = time.perf_counter() - t1
+            same[name] = (
+                np.array_equal(spilled[name].offsets, w["index"].offsets)
+                and np.array_equal(spilled[name].positions,
+                                   w["index"].positions))
+    finally:
+        bmod._RadixSpill.finalize = real
+        bmod._RadixSpill.add_partitioned = real_add
+    inram_same = np.array_equal(inram.positions, w["index"].positions)
+    left = os.listdir(spill_dir)
+    emit({"phase": "spill", "genome_bases": int(w["db"].total_len),
+          "slot_bits": cfg.slot_bits, "inram_build_s": inram_s,
+          "spill_build_s": seconds, "chunks": chunks,
+          "spill_bytes": on_disk,
+          "positions": int(spilled["one_chunk"].num_positions),
+          "equal_to_inram": same, "inram_equal_to_phase4": inram_same,
+          "spill_dir_left": left})
+    check(len(on_disk) == 2 and min(on_disk) > 0,
+          "the spill path did not run")
+    check(chunks[0] == 1 and chunks[1] > 1, f"spill chunks {chunks}")
+    check(all(same.values()) and inram_same,
+          f"the spill build differs from the in-RAM build: {same}")
+    check(not left, f"the spill left {left}")
+
+
+# phase 13's genome: 2^31 + 2^26 bases, the real sequence from
+# SCALE_REAL_START on (three chromosomes), N chromosomes before it;
+# SCALE_POINT is the coordinate its checks count reads past
+SCALE_POINT = 1 << 31
+SCALE_TOTAL = SCALE_POINT + (1 << 26)
+SCALE_REAL_START = SCALE_POINT - (1 << 24)
+SCALE_N_CHROMS = 8
+SCALE_REAL_CHROMS = 3
+
+
+def scale_seqdb(rng):
+    """A SeqDB of SCALE_TOTAL bases built in memory: SCALE_N_CHROMS
+    chromosomes of N up to SCALE_REAL_START, then SCALE_REAL_CHROMS of
+    make_genome's sequence, the first straddling global position 2^31
+    (kept free of N there). Separators between all of them, as
+    SeqDB.from_seqs lays them out."""
+    from urmap_tpu_torch import alphabet
+    from urmap_tpu_torch.io.fasta import SEPARATOR_LEN, SeqDB
+    from urmap_tpu_torch.utils.bigmem import big_empty
+
+    sep = SEPARATOR_LEN
+    codes = big_empty(SCALE_TOTAL, np.uint8)
+    codes[...] = alphabet.GENOME_N
+    n_len = (SCALE_REAL_START - sep) // SCALE_N_CHROMS - sep
+    r_len = (SCALE_TOTAL - SCALE_REAL_START) // SCALE_REAL_CHROMS - sep
+    starts, lengths, labels = [], [], []
+    pos = sep
+    for i in range(SCALE_N_CHROMS + SCALE_REAL_CHROMS):
+        real = i >= SCALE_N_CHROMS
+        if real and pos < SCALE_REAL_START:
+            pos = SCALE_REAL_START
+        ln = r_len if real else n_len
+        if real:
+            codes[pos : pos + ln] = make_genome(rng, ln)
+        starts.append(pos)
+        lengths.append(ln)
+        labels.append(f"chr{i + 1}" if real else f"chrN{i + 1}")
+        pos += ln + sep
+    a = SCALE_POINT
+    check(pos <= SCALE_TOTAL and starts[SCALE_N_CHROMS] < a
+          < starts[SCALE_N_CHROMS] + lengths[SCALE_N_CHROMS],
+          "the scale genome's layout")
+    codes[a - 1000 : a + 1000] = rng.integers(0, 4, 2000, dtype=np.uint8)
+    return SeqDB(labels=labels, starts=np.asarray(starts, np.int64),
+                 lengths=np.asarray(lengths, np.int64), codes=codes)
+
+
+def peak_rss_bytes() -> int:
+    """This process's peak resident set so far (getrusage)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def phase_scale(dev, mcfg, sc, smi: str, work: str, seed: int,
+                n_reads: int = 65_536, n_cpu: int = 1024) -> dict:
+    """Phase 13: genome coordinates past 2^31 on the main path. The
+    genome (scale_seqdb) is built in memory; its 2.2G words take
+    build_index's spill path by themselves; prepare_tables picks the
+    layout; reads planted in the real chromosomes (some straddling 2^31)
+    map through the card's Mapper with the slice's checks, counted
+    apart past 2^31; the first n_cpu reads again on a CPU Mapper over
+    the same tables: MapResult, tb records and SAM bytes identical."""
+    import torch
+
+    from urmap_tpu_torch.config import IndexConfig
+    from urmap_tpu_torch.index import build_index
+    from urmap_tpu_torch.index import build as bmod
+    from urmap_tpu_torch.index.store import prepare_tables
+    from urmap_tpu_torch.map import Mapper
+
+    rng = np.random.default_rng([seed, 13])
+    rss_before = peak_rss_bytes()
+    t0 = time.perf_counter()
+    db = scale_seqdb(rng)
+    t1 = time.perf_counter()
+    check(db.codes.shape[0] - K + 1 > bmod.SPILL_THRESHOLD,
+          "the scale genome does not pass the spill threshold")
+    index = build_index(db, IndexConfig(slot_bits=27))
+    t2 = time.perf_counter()
+    prepared = prepare_tables(index, P)
+    t3 = time.perf_counter()
+    mapper = Mapper(index, mcfg, sc, device=dev, prepared=prepared)
+    torch.cuda.synchronize(dev)
+    t4 = time.perf_counter()
+    card_bytes = sum(v.numel() * v.element_size()
+                     for v in mapper.tables.values()
+                     if isinstance(v, torch.Tensor))
+    lo = int(db.starts[SCALE_N_CHROMS])
+    hi = int(db.starts[-1] + db.lengths[-1])
+    a = SCALE_POINT
+    pin = a - rng.integers(1, READ_LEN, size=256)
+    codes, truth, strand = plant_reads(rng, db, n_reads, span=(lo, hi),
+                                       pin=pin)
+    fq = os.path.join(work, "scale.fq")
+    fq_cpu = os.path.join(work, "scale_cpu.fq")
+    write_fastq(fq, codes)
+    write_fastq(fq_cpu, codes[:n_cpu])
+    w = {"db": db, "index": index, "codes": codes, "truth": truth,
+         "strand": strand}
+    run = run_single_end(dev, w, mapper, "scale", fq, n_reads, B, smi,
+                         os.path.join(work, "out_scale.sam"))
+    res = run["res"]
+    planted = truth >= 0
+    correct = res.mapped & (res.pos == truth) & (res.strand == strand)
+    past = planted & (truth >= a)
+    straddle = planted & (truth < a) & (truth + READ_LEN > a)
+    frac_past = float(correct[past].mean())
+    # the first reads on the card alone and on a CPU Mapper
+    on_results, on_sam = map_fastq(mapper, db, fq_cpu, B, None)
+    cpu = Mapper(index, mcfg, sc, device="cpu", prepared=prepared)
+    cpu_results, cpu_sam = map_fastq(cpu, db, fq_cpu, B, None)
+    diff = differing(concat_results(cpu_results),
+                     concat_results(on_results))
+    tb_diff = sorted({k for x, y in zip(cpu_results, on_results)
+                      for k in tb_differing(x.tb, y.tb)})
+    head = b"\n".join(run["sam"].split(b"\n")[:n_cpu]) + b"\n"
+    meta = prepared[1]
+    emit({"phase": "scale_result", "gpu": smi,
+          "genome_bases": int(db.total_len), "chromosomes": len(db.labels),
+          "real_span": [lo, hi], "slot_bits": 27,
+          "layout": meta["layout"], "off_bits": meta["off_bits"],
+          "positions": int(index.num_positions),
+          "table_words": int(prepared[0]["positions"].size),
+          "setup_s": {"genome": t1 - t0, "build": t2 - t1,
+                      "prepare": t3 - t2, "upload": t4 - t3},
+          "card_table_bytes": card_bytes,
+          "peak_rss_bytes": peak_rss_bytes(),
+          "peak_rss_before_phase_bytes": rss_before,
+          "reads_past_2^31": int(past.sum()),
+          "correct_frac_past_2^31": frac_past,
+          "straddling_2^31": int(straddle.sum()),
+          "correct_straddling": int(correct[straddle].sum()),
+          "max_pos": int(res.pos[res.mapped].max()),
+          "cpu_reads": n_cpu, "fields_differing": diff,
+          "tb_keys_differing": tb_diff, "sam_identical": cpu_sam == on_sam,
+          "alone_equals_full_run": on_sam == head})
+    check(meta["layout"] == "row128", f"layout {meta['layout']}")
+    check(past.sum() > n_reads // 2 and straddle.sum() > 0,
+          "too few reads past 2^31")
+    check(frac_past >= 0.99, f"correct fraction past 2^31 {frac_past}")
+    check(not diff, f"scale: card and CPU differ in {diff}")
+    check(not tb_diff, f"scale: card and CPU tb records differ in {tb_diff}")
+    check(cpu_sam == on_sam, "scale: card and CPU SAM bytes differ")
+    check(on_sam == head, "scale: the first reads map differently alone")
+    return run["counts"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2278,6 +2754,11 @@ def main(argv=None) -> int:
                          2 * (B // 32) * V)
     emit({"phase": "kernels", "gpu": smi, **recs})
     phase3 = read_counters()
+    # phase 3's table past 2^31 words went with its cases: give it back
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated(dev) < (1 << 30),
+          f"{torch.cuda.memory_allocated(dev)} bytes still held after "
+          "phase 3")
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -2313,6 +2794,9 @@ def main(argv=None) -> int:
     w["seed"] = args.seed
     sh_counts = phase_shapes(dev, w, smi, work, N_SHAPES)
     cli_counts = phase_cli(dev, w, aligned, smi, work)
+    tier = phase_tier(dev, w, aligned, mappers["on"], smi, work)
+    phase_spill(w, work)
+    scale_counts = phase_scale(dev, mcfg, sc, smi, work, args.seed)
 
     src = "urmap_tpu_torch/csrc/"
     tpu = "urmap_tpu/kernels/"
@@ -2351,7 +2835,9 @@ def main(argv=None) -> int:
     # the same kernel held against its plain version on other inputs in
     # phase 3: the [R, 128] view of the table, other batch sizes
     variants = {
-        "seed_front": ["seed_front_packed"],
+        "seed_front": ["seed_front_packed", "seed_front_obase_past_2^31"],
+        "row128_fetch": ["row128_fetch_tier4", "row128_fetch_tier8",
+                         "row128_fetch_past_2^31"],
         "vote": ["vote_m256", "vote_m2048"],
         "window_mismatches": ["window_mismatches_row128"],
         "window_codes": ["window_codes_row128"],
@@ -2375,8 +2861,9 @@ def main(argv=None) -> int:
         return counts[name]["launches"]
 
     # launches: the counts over the paths (aligned slice, row128 slice,
-    # paired run, semiglobal, shapes, and the cli phase's -map runs: cli,
-    # endclip, endclip_paired, secondpass), each read just after its run
+    # paired run, semiglobal, shapes, the cli phase's -map runs: cli,
+    # endclip, endclip_paired, secondpass, the tiered slice and the scale
+    # run), each read just after its run
     # with the counters set to 0 just before it, summed; by path under
     # launches_by_path.
     # banded_semiglobal's path is phase 8 (the winners re-aligned over
@@ -2386,7 +2873,8 @@ def main(argv=None) -> int:
     # them phase3_launches times (one compared, eight timed).
     paths = {"slice": aligned["counts"], "row128": r128["counts"],
              "paired": pe_counts, "semiglobal": sg_counts,
-             "shapes": sh_counts, **cli_counts}
+             "shapes": sh_counts, **cli_counts, "tier": tier["counts"],
+             "scale": scale_counts}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -2410,6 +2898,11 @@ def main(argv=None) -> int:
     check(all(k["launches"] == 0 for k in kernels if k["name"] in off_path),
           f"a kernel off the paths was launched there: {kernels}")
     emit({"kernels": kernels,
+          "tier_rounds": {
+              **{k: tier[k] for k in ("batches", "calls", "rounds")},
+              "host_syncs_one_batch": {
+                  k: v for k, v in tier["host_syncs_one_batch"].items()
+                  if not k.endswith("_sites")}},
           "note": "row128_window_fetch (the classic layout's fetch), "
                   "banded_semiglobal_clip, rotate_narrow and tb_bits have "
                   "no caller on these paths: their launches there are 0, "

@@ -139,13 +139,16 @@ def test_mapper_refuses_what_is_not_ported(corpus, monkeypatch):
     idx = tbuild(db, None)
     # the default configuration (device traceback on) is ported
     assert TMapper(idx, MapConfig(batch_size=128), device="cpu").tb
-    # the tiered gather is not: the aligned table carries a tier, which
-    # URMAP_TIER_GATHER=1 puts into effect
-    monkeypatch.setenv("URMAP_TIER_GATHER", "1")
+    # so is the tiered gather: the aligned table carries a tier, which
+    # URMAP_TIER_GATHER=1 puts into effect (its parity with urmap_tpu:
+    # test_torch_tier_pipeline.py)
     prepared = jprepare(jbuild(db, None, backend="host"), 16)
     prepared[1]["gather_tier"] = 4
-    with pytest.raises(NotImplementedError, match="A.3"):
-        TMapper(idx, MCFG, device="cpu", prepared=prepared)
+    assert TMapper(idx, MCFG, device="cpu",
+                   prepared=prepared).gather_tier is None
+    monkeypatch.setenv("URMAP_TIER_GATHER", "1")
+    assert TMapper(idx, MCFG, device="cpu",
+                   prepared=prepared).gather_tier == 4
     monkeypatch.delenv("URMAP_TIER_GATHER")
     # the row128 layout is ported: the Mapper takes it
     monkeypatch.setenv("URMAP_ROW128_BYTES", "1")

@@ -77,6 +77,7 @@ FUNCTION_COPIES = [
     ("dist.multihost", "paired_fastq_byte_ranges"),
     ("dist.multihost", "Watermark"), ("dist.multihost", "ShardWriter"),
     ("dist.multihost", "merge_shards"),
+    ("index.build", "_RadixSpill"), ("index.build", "_host_chunk_slots"),
 ]
 
 
@@ -89,6 +90,27 @@ def test_function_copy_equals_source(module, name):
     theirs = getattr(importlib.import_module(f"urmap_tpu.{module}"), name)
     assert inspect.getsource(ours).replace("urmap_tpu_torch", "urmap_tpu") \
         == inspect.getsource(theirs)
+
+
+# module constants copied with the comment lines above them
+CONSTANT_COPIES = [("index/build.py", "SPILL_THRESHOLD")]
+
+
+@pytest.mark.parametrize("rel,name", CONSTANT_COPIES)
+def test_constant_copy_equals_source(rel, name):
+    def block(pkg):
+        lines = _read(pkg, rel).decode().splitlines()
+        i = next(i for i, ln in enumerate(lines)
+                 if ln.startswith(f"{name} = "))
+        j = i
+        while j > 0 and lines[j - 1].startswith("# ") \
+                and not lines[j - 1].startswith("# urmap_tpu/"):
+            j -= 1
+        return lines[j : i + 1]
+
+    theirs = block("urmap_tpu")
+    assert len(theirs) >= 2
+    assert block("urmap_tpu_torch") == theirs
 
 
 def test_port_source_never_imports_the_reference_or_jax():

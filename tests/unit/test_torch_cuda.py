@@ -329,7 +329,9 @@ def test_row128_fetch_kernel_matches_plain(cuda_device, width, window):
     got = kern(table, st, width)
     torch.cuda.synchronize()
     assert cnt.launches == 1 and cnt.plain_calls == 0
-    assert cnt.widths == ({width: 1} if window else {})
+    # both entries record the output width (the row entry's tells the
+    # tiered gather's passes apart)
+    assert cnt.widths == {width: 1}
     want = plain(table, st, width)
     assert got.dtype == want.dtype and torch.equal(got, want)
     with pytest.raises(ValueError, match="starts"):
@@ -976,3 +978,105 @@ def test_cli_map_endclip_on_the_card_equals_the_cpu(cuda_device, tmp_path,
             assert by_name["tb_dops"].launches == 3
             assert by_name["vote"].host_pass_calls > 0
         assert out["cuda"] == out["cpu"]
+
+
+# ---- the tiered gather and tables past 2^31 words -------------------------
+
+@pytest.mark.parametrize("tier", [4, 8])
+def test_row_entry_tier_widths_match_plain(cuda_device, tier):
+    """B5's row entry as the tiered gather's first pass runs it: a 1-D
+    table at width = row_words = 4 and 8, starts at the rows' ends, past
+    the table and in its last row."""
+    from urmap_tpu_torch.kernels import lane_rotate
+    from urmap_tpu_torch.map import seed
+
+    rng = np.random.default_rng(tier)
+    words = 128 * 3000
+    table = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, words).astype(np.int32)).to(cuda_device)
+    st = rng.integers(0, words, 262_144)
+    st[:8] = [0, tier - 1, tier, words - 1, words - tier, words,
+              words + 77, (1 << 32) - 1]
+    st = torch.from_numpy(st).to(cuda_device)
+    lane_rotate.fetch_counter.reset()
+    got = lane_rotate.row128_fetch(table, st, tier, row_words=tier)
+    torch.cuda.synchronize()
+    assert lane_rotate.fetch_counter.widths == {tier: 1}
+    want = seed._aligned_rows_fetch(table, st, tier, tier)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_row_entry_past_2_31_words(cuda_device):
+    """B5's row entry over a [R, 128] table of 2^31 + 2^24 words (a human
+    genome's row128 positions, 8.7 GB), a third of the starts past 2^31
+    and some in the last row."""
+    from urmap_tpu_torch.kernels import lane_rotate
+    from urmap_tpu_torch.map import seed
+
+    M = (1 << 31) + (1 << 24)
+    free, _total = torch.cuda.mem_get_info(cuda_device)
+    if free < 3 * M * 4:
+        pytest.skip(f"needs {3 * M * 4:,} bytes free on the card (the "
+                    f"table and the plain version's index), has {free:,}")
+    rng = np.random.default_rng(31)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(31)
+    table = torch.randint(-(1 << 31), (1 << 31) - 1, (M // 128, 128),
+                          dtype=torch.int32, device=cuda_device,
+                          generator=gen)
+    n = 262_144
+    st = rng.integers(0, M, n)
+    st[: n // 3] = rng.integers(1 << 31, M, n // 3)
+    st[-64:] = rng.integers(M - 128, M, 64)
+    st[:5] = [(1 << 31) - 1, 1 << 31, M - 1, M - 16, M + 5]
+    st = torch.from_numpy(st).to(cuda_device)
+    got = lane_rotate.row128_fetch(table, st, 16)
+    want = seed._row128_fetch(table, st, 16)
+    assert torch.equal(got, want)
+    # the words past 2^31 themselves, where the row holds them
+    inside = ((st & 127) <= 112) & (st < M)
+    flat = table.view(-1)
+    assert torch.equal(got[inside, 0], flat[st[inside]])
+
+
+def test_cuda_mapper_tiered_gather_matches_cpu(cuda_device, monkeypatch):
+    """URMAP_TIER_GATHER=1: the card's Mapper over an aligned index with
+    a repeat (overflow seeds) equals the CPU Mapper and its own untiered
+    run; B5 launched at the tier width once a batch plus one full-width
+    launch an overflow round."""
+    from urmap_tpu_torch.kernels import lane_rotate, tier_rounds
+
+    rng = np.random.default_rng(12)
+    db = make_seqdb(rng, [400_000])
+    unit = db.codes[5000:5400].copy()
+    for i in range(40):
+        s = 100_000 + 2000 * i
+        db.codes[s : s + 400] = unit
+    reads = [plant_read(rng, db, length=150, n_snps=int(rng.integers(0, 3)))
+             for _ in range(480)]
+    reads += [plant_read(rng, db, length=150, gpos=100_000 + 2000 * i + 100)
+              for i in range(32)]
+    codes = np.stack([r.codes for r in reads])
+    ln = np.full(len(reads), 150, np.int32)
+    idx = build_index(db)
+    mcfg = MapConfig(batch_size=256)
+    monkeypatch.setenv("URMAP_TIER_GATHER", "1")
+    m = Mapper(idx, mcfg, device=cuda_device)
+    assert m.csr_aligned and m.gather_tier in (4, 8)
+    for c in counters():
+        c.reset()
+    tier_rounds.reset()
+    got = m.map_codes(codes, ln)
+    fc = lane_rotate.fetch_counter
+    assert fc.plain_calls == 0 and tier_rounds.calls == 2
+    assert tier_rounds.rounds > 0
+    assert fc.widths == {m.gather_tier: 2, 16: tier_rounds.rounds}
+    want = Mapper(idx, mcfg, device="cpu").map_codes(codes, ln)
+    monkeypatch.delenv("URMAP_TIER_GATHER")
+    untiered = Mapper(idx, mcfg, device=cuda_device).map_codes(codes, ln)
+    for f in ("mapped", "pos", "strand", "score", "second", "mapq",
+              "gapped", "ungapped", "clipped", "suspect"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+        np.testing.assert_array_equal(getattr(got, f),
+                                      getattr(untiered, f), err_msg=f)

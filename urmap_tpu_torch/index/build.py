@@ -5,14 +5,25 @@ JAX-free copy of the host backend of urmap_tpu/index/build.py
 extract/partition and radix sort of the io.native codecs, with the
 bit-identical numpy twins when the native library is missing or
 URMAP_NO_NATIVE_BUILD=1. Its tables are bit-identical to urmap_tpu's.
-The disk radix spill for genomes above SPILL_THRESHOLD words (GRCh38
-scale) and the XLA device build are not ported.
+
+Genomes above ``spill_threshold`` words (GRCh38 scale: ~3.1G words)
+stream through the disk radix spill (``_RadixSpill``): chunks of
+(slot << 32 | pos) keys partitioned by the slot's high bits into 256
+bucket files, then each bucket sorted, capped and laid out in order, so
+peak RAM is one bucket plus the final tables. The output is
+bit-identical to the in-RAM build. ``_RadixSpill`` is copied verbatim
+(tests/unit/test_torch_copies.py holds it by text), so it keeps
+``add(sorted_by_slot=True)``, whose only caller in urmap_tpu is the XLA
+device build, which is not ported. A verbatim copy is simpler to keep
+than a trimmed one.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -21,6 +32,10 @@ from urmap_tpu_torch.config import IndexConfig
 from urmap_tpu_torch.io.fasta import SeqDB
 from urmap_tpu_torch.index.store import UfiIndex, evenly_cap_runs
 
+# Words one chunk of the spill build extracts: urmap_tpu's host backend
+# takes max(DEFAULT_CHUNK, 2^27), which is 2^27.
+HOST_CHUNK = 1 << 27
+# Above this many words the build streams through the disk radix spill.
 SPILL_THRESHOLD = 256 * 1024 * 1024
 
 _P_U64 = ctypes.POINTER(ctypes.c_uint64)
@@ -112,10 +127,206 @@ def _host_sorted_slots(codes: np.ndarray, k: int, slot_bits: int):
     return (key >> np.uint64(32)).astype(np.uint32), key.astype(np.uint32)
 
 
-# urmap_tpu/index/build.py:build_index (backend="host", in-RAM path)
-def build_index(seqdb: SeqDB, cfg: IndexConfig | None = None) -> UfiIndex:
+# urmap_tpu/index/build.py:_RadixSpill
+class _RadixSpill:
+    """Disk-backed (slot, pos) partition by slot high bits.
+
+    Pairs ride as one uint64 key (slot << 32 | pos); positions are
+    unique, so the per-bucket radix sort in finalize() directly yields
+    (slot asc, pos asc) — identical to the in-RAM merge, with no stable-
+    argsort or payload gathers and no ordering requirements on add()."""
+
+    def __init__(self, slot_bits: int, spill_dir: str | None):
+        self.radix_bits = min(8, slot_bits)
+        self.shift = slot_bits - self.radix_bits
+        self.nbuck = 1 << self.radix_bits
+        self.dir = tempfile.mkdtemp(prefix="ufi_spill_", dir=spill_dir)
+        self.paths = [os.path.join(self.dir, f"b{i:04d}.bin")
+                      for i in range(self.nbuck)]
+        self.files = [open(p, "wb", buffering=1 << 20) for p in self.paths]
+
+    def add(self, slots: np.ndarray, pos: np.ndarray,
+            sorted_by_slot: bool = False) -> None:
+        key = (slots.astype(np.uint64) << np.uint64(32)) | pos
+        if sorted_by_slot:
+            # device-build chunks arrive slot-sorted: bucket boundaries
+            # are nbuck binary searches, no argsort partition pass.
+            # uint32 needles — uint64 ones would promote (copy) the
+            # whole slots chunk
+            cuts = np.searchsorted(
+                slots, (np.arange(1, self.nbuck, dtype=np.uint32)
+                        << np.uint32(self.shift)).astype(slots.dtype))
+            counts = np.diff(np.concatenate(
+                [[0], cuts, [slots.shape[0]]]))
+        else:
+            b = (slots >> np.uint32(self.shift)).astype(np.uint8)
+            order = np.argsort(b, kind="stable")  # radix partition
+            key = key[order]
+            counts = np.bincount(b, minlength=self.nbuck)
+        off = 0
+        for i in range(self.nbuck):
+            c = int(counts[i])
+            if c:
+                self.files[i].write(key[off : off + c].tobytes())
+                off += c
+
+    def add_partitioned(self, keys: np.ndarray,
+                        counts: np.ndarray) -> None:
+        """Append keys already partitioned by bucket (ascending, counts
+        per bucket) — the native extract_partition output lands here
+        with zero host post-processing."""
+        off = 0
+        for i in range(self.nbuck):
+            c = int(counts[i])
+            if c:
+                self.files[i].write(keys[off : off + c].tobytes())
+                off += c
+
+    def finalize(self, num_slots: int, cap: int):
+        """Per-bucket sort + cap → (offsets uint32[num_slots+1],
+        positions uint32). Deletes the spill directory.
+
+        Buckets are independent, so a small thread pool loads + sorts a
+        few buckets ahead (the native kernels release the GIL); the
+        consumer assembles offsets/positions in bucket order. Buffers
+        come from a fixed free-list and the capped positions land
+        directly in the final array (bigmem shared-hugepage storage) —
+        fresh multi-GB allocations cost ~5-20 s/GB of page faults on
+        this VM class, so the loop reuses every large buffer."""
+        for f in self.files:
+            f.close()
+        L = _native_lib()
+        running = 0
+        sps = 1 << self.shift                     # slots per bucket
+        sizes = [os.path.getsize(p) // 8 for p in self.paths]
+        grand = sum(sizes)          # uncapped upper bound on positions;
+        #                             the capped total is range-checked
+        #                             per bucket below
+        window = min(4, (os.cpu_count() or 4))
+
+        if L is not None:
+            import ctypes
+            import queue
+
+            from urmap_tpu_torch.utils.bigmem import big_empty
+
+            # every entry is assigned below (each slot belongs to
+            # exactly one bucket), so no zero-fill is needed — and a
+            # zeroed anon array would fault ~10 s/GB on this VM class
+            offsets = big_empty(num_slots + 1, np.uint32)
+            final_pos = big_empty(max(grand, 1), np.uint32)
+            maxb = max(sizes, default=1)
+            free: queue.Queue = queue.Queue()
+            for _ in range(window + 1):
+                free.put((big_empty(maxb, np.uint64),
+                          big_empty(maxb, np.uint32),
+                          np.empty(sps, np.int64)))
+
+            def load_sort(i: int):
+                bufs = free.get()
+                kbuf, pbuf, cbuf = bufs
+                n = sizes[i]
+                key = kbuf[:n]
+                with open(self.paths[i], "rb") as f:
+                    if f.readinto(key) != n * 8:
+                        raise IOError(f"short read on {self.paths[i]}")
+                _sort_u64(L, key)
+                m = L.urmap_bucket_csr(
+                    key.ctypes.data_as(_P_U64), n, i * sps, sps, cap,
+                    pbuf.ctypes.data_as(
+                        ctypes.POINTER(ctypes.c_uint32)),
+                    cbuf.ctypes.data_as(
+                        ctypes.POINTER(ctypes.c_int64)))
+                if m < 0:
+                    raise RuntimeError("urmap_bucket_csr failed")
+                return bufs, int(m)
+
+            cum_buf = np.empty(sps + 1, np.int64)
+            with ThreadPoolExecutor(window) as ex:
+                pending = {i: ex.submit(load_sort, i)
+                           for i in range(min(window, self.nbuck))}
+                for i in range(self.nbuck):
+                    bufs, m = pending.pop(i).result()
+                    nxt = i + window
+                    if nxt < self.nbuck:
+                        pending[nxt] = ex.submit(load_sort, nxt)
+                    _, pbuf, cbuf = bufs
+                    lo = i * sps
+                    cum_buf[0] = running
+                    np.cumsum(cbuf, out=cum_buf[1:])
+                    cum_buf[1:] += running
+                    if cum_buf[-1] >= (1 << 32):
+                        raise ValueError(
+                            "positions exceed uint32 CSR range")
+                    offsets[lo : lo + sps + 1] = cum_buf
+                    final_pos[running : running + m] = pbuf[:m]
+                    running = int(cum_buf[-1])
+                    free.put(bufs)
+            shutil.rmtree(self.dir, ignore_errors=True)
+            return offsets, final_pos[:running]
+
+        offsets = np.zeros(num_slots + 1, np.uint32)
+        pos_parts = []
+
+        def load_sort_np(i: int) -> np.ndarray:
+            key = np.fromfile(self.paths[i], "<u8")
+            _sort_u64(L, key)
+            return key
+
+        with ThreadPoolExecutor(window) as ex:
+            pending = {i: ex.submit(load_sort_np, i)
+                       for i in range(min(window, self.nbuck))}
+            for i in range(self.nbuck):
+                key = pending.pop(i).result()
+                nxt = i + window
+                if nxt < self.nbuck:
+                    pending[nxt] = ex.submit(load_sort_np, nxt)
+                sl_rel = (key >> np.uint64(32)).astype(np.int64) - i * sps
+                po = key.astype(np.uint32)
+                del key
+                counts_b = np.bincount(sl_rel,
+                                       minlength=sps).astype(np.int64)
+                if cap > 0 and int(counts_b.max(initial=0)) > cap:
+                    po = po[evenly_cap_runs(counts_b, cap)]
+                    counts_b = np.minimum(counts_b, cap)
+                pos_parts.append(po)
+                lo = i * sps
+                cum = running + np.concatenate([[0], np.cumsum(counts_b)])
+                if cum[-1] >= (1 << 32):
+                    raise ValueError("positions exceed uint32 CSR range")
+                offsets[lo : lo + sps + 1] = cum
+                running = int(cum[-1])
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return offsets, np.concatenate(pos_parts) if pos_parts \
+            else np.zeros(0, np.uint32)
+
+
+# urmap_tpu/index/build.py:_host_chunk_slots
+def _host_chunk_slots(codes: np.ndarray, start: int, stop: int, k: int,
+                      slot_bits: int):
+    """Host word extraction for word starts [start, stop): returns
+    (slots, pos) in ascending-position order (invalid words dropped)."""
+    from urmap_tpu_torch.hashing import extract_words_np, words_to_slots_np
+
+    sub = codes[start : stop + k - 1]
+    lo, hi, valid = extract_words_np(sub, k)
+    slots = words_to_slots_np(lo, hi, slot_bits)
+    pos = (np.nonzero(valid)[0] + start).astype(np.uint32)
+    return slots[valid], pos
+
+
+# urmap_tpu/index/build.py:build_index (backend="host")
+def build_index(seqdb: SeqDB, cfg: IndexConfig | None = None, *,
+                chunk: int = HOST_CHUNK,
+                spill_threshold: int = SPILL_THRESHOLD,
+                spill_dir: str | None = None) -> UfiIndex:
     """Build the UFI index for a SeqDB on the host. ``cfg=None``
-    auto-sizes slot_bits from the genome length."""
+    auto-sizes slot_bits from the genome length. Genomes with more than
+    ``spill_threshold`` words stream through a disk radix spill under
+    ``spill_dir`` (tempfile's default when None), in chunks of
+    ``chunk`` words: bounded RAM, the same output bit for bit, whatever
+    the chunk. The spill directory is removed on success and on any
+    exception."""
     if cfg is None:
         cfg = IndexConfig(
             slot_bits=IndexConfig.auto_slot_bits(seqdb.total_len))
@@ -123,11 +334,34 @@ def build_index(seqdb: SeqDB, cfg: IndexConfig | None = None) -> UfiIndex:
     n_words = codes.shape[0] - cfg.k + 1
     if n_words <= 0:
         raise ValueError("genome shorter than k")
-    if n_words > SPILL_THRESHOLD:
-        raise NotImplementedError(
-            f"{n_words:,} words exceed the in-RAM build; the disk radix "
-            "spill is not ported (build with urmap_tpu, which writes the "
-            "same on-disk format)")
+    if n_words > spill_threshold:
+        spill = _RadixSpill(cfg.slot_bits, spill_dir)
+        L = _native_lib()
+        try:
+            start = 0
+            while start < n_words:
+                stop = min(start + chunk, n_words)
+                if L is not None:
+                    keys, counts = _native_extract_partition(
+                        L, codes[start : stop + cfg.k - 1], start,
+                        cfg.k, cfg.slot_bits, spill.radix_bits)
+                    spill.add_partitioned(keys, counts)
+                    # free this chunk's keys before the next allocates
+                    del keys
+                else:
+                    sl, po = _host_chunk_slots(codes, start, stop, cfg.k,
+                                               cfg.slot_bits)
+                    spill.add(sl, po)
+                start = stop
+            offsets, positions = spill.finalize(cfg.num_slots,
+                                                cfg.max_positions_per_slot)
+        except BaseException:
+            # a multi-Gbp spill is ~25 GB of TMPDIR: never leave it
+            # behind (finalize removes it on success)
+            shutil.rmtree(spill.dir, ignore_errors=True)
+            raise
+        return UfiIndex(config=cfg, offsets=offsets, positions=positions,
+                        seqdb=seqdb)
     slots, pos = _host_sorted_slots(codes, cfg.k, cfg.slot_bits)
     slots, pos, offsets = _cap_slots(slots, pos, cfg.num_slots,
                                      cfg.max_positions_per_slot)

@@ -429,14 +429,16 @@ def prepare_tables(index: UfiIndex, p: int) -> tuple[dict, dict]:
 
     capped = index.recapped(p)
     rw = align_row_words(p)
-    counts = counts_i64(capped.offsets)
-    starts, total = align_runs(counts, rw)
+    starts, total = align_runs(counts_i64(capped.offsets), rw)
     csr_aligned = bool(total <= 1.15 * max(capped.num_positions, 1))
     view_bytes = (total if csr_aligned
                   else capped.num_positions) * 4 * (128 // min(rw, 128))
     row128 = p <= ROW128 and view_bytes > _row128_budget()
     tier = None
     if row128:
+        # 8 bytes a slot (8.6 GB at 2^30 slots) that the row128 layout,
+        # which places its runs anew, does not read
+        del starts
         csr_aligned = False
         ht = capped.host_tables(row_fixed=ROW128)
         pk = pack_offsets_row128(ht["offsets"], p)

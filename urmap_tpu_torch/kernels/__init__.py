@@ -35,8 +35,9 @@ class host_pass:
 class Counter:
     """Launches of a kernel and calls of its plain version (outside and
     inside ``host_pass()``). ``widths`` splits the launches by a size
-    the wrapper records: the window fetches' output width (one kernel
-    each, the verify, DP and rescue shapes), B1's candidate count."""
+    the wrapper records: the fetches' output width (the window entries:
+    the verify, DP and rescue shapes; the row entry: the tiered
+    gather's narrow and full-width passes), B1's candidate count."""
 
     def __init__(self, name: str):
         self.name = name
@@ -60,6 +61,29 @@ class Counter:
         self.launches += 1
         if width is not None:
             self.widths[width] = self.widths.get(width, 0) + 1
+
+
+class Rounds:
+    """Calls of a loop on the mapping path that reads its condition
+    back from the device each round, and the rounds they ran. Every
+    thread's calls count here."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = 0
+        self.rounds = 0
+
+    def add(self, rounds: int) -> None:
+        with self._lock:
+            self.calls += 1
+            self.rounds += rounds
+
+
+# the tiered gather's overflow rounds (map.seed.gather_runs ``tier``)
+tier_rounds = Rounds()
 
 
 def counters() -> list[Counter]:

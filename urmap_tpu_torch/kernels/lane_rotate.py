@@ -64,7 +64,7 @@ def row128_fetch(positions: torch.Tensor, flat_starts: torch.Tensor,
     _build.load()
     out = torch.ops.urmap.row128_fetch(positions, flat_starts, width,
                                        row_words)
-    fetch_counter.launched()
+    fetch_counter.launched(width)
     return out
 
 

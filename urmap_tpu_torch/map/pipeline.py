@@ -233,7 +233,7 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     lengths2 = torch.cat([lengths, lengths], dim=0)         # [2B]
     cand = gather_runs(tables["positions"], start, cnt, offs, valid, p=p,
                        csr_aligned=tables["csr_aligned"],
-                       row128=tables["row128"])
+                       tier=tables["gather_tier"], row128=tables["row128"])
     top_cand, votes = vote.vote(cand, v=v)                  # [2B, V]
     if mcfg.min_votes > 1:
         # vote floor with per-read fallback (config.MapConfig.min_votes)
@@ -644,10 +644,6 @@ class WideSecondPass:
         self.device = torch.device("cpu")
         prep = load_prepared(index, sp) or prepare_tables(index, sp)
         self._tables = tables_from_numpy(*prep, self.device)
-        if self._tables["gather_tier"] is not None:
-            raise NotImplementedError(
-                "the tiered gather (URMAP_TIER_GATHER=1) is not ported "
-                "(ROADMAP.md A.3)")
         self._cfg = dataclasses.replace(mcfg, positions_per_seed=sp,
                                         batch_size=self._BATCH,
                                         second_pass_p=0)
@@ -716,7 +712,8 @@ class Mapper:
     CUDA the seed, table-fetch, vote, DP and traceback stages launch
     their kernels, on the CPU they run the plain versions. The table
     layout (classic, aligned or row128, with or without packed
-    offsets) comes with the prepared tables. ``prepared``: (host
+    offsets) comes with the prepared tables, and with them the tiered
+    gather's width where URMAP_TIER_GATHER=1 (``gather_tier``). ``prepared``: (host
     tables, meta) from either package's prepare_tables /
     load_prepared, in place of preparing them from ``index`` here.
     ``mcfg.end_clip`` runs every DP in clip mode and turns the device
@@ -746,10 +743,8 @@ class Mapper:
         self.csr_aligned = self.tables["csr_aligned"]
         self.row128 = self.tables["row128"]
         self.off_bits = self.tables["off_bits"]
-        if self.tables["gather_tier"] is not None:
-            raise NotImplementedError(
-                "the tiered gather (URMAP_TIER_GATHER=1) is not ported "
-                "(ROADMAP.md A.3)")
+        # the tiered gather's width (aligned layout, URMAP_TIER_GATHER=1)
+        self.gather_tier = self.tables["gather_tier"]
         self.second = (WideSecondPass(index, self.mcfg, self.sc)
                        if self.mcfg.second_pass_p else None)
 

@@ -219,14 +219,31 @@ def gather_candidates(offsets: torch.Tensor, positions: torch.Tensor,
 def gather_runs(positions: torch.Tensor, start: torch.Tensor,
                 cnt: torch.Tensor, seed_offs: torch.Tensor,
                 valid: torch.Tensor, *, p: int, csr_aligned: bool = False,
+                tier: int | None = None, tier_overflow_frac: int = 16,
                 row128: bool = False) -> torch.Tensor:
     """The fetch half of gather_candidates, from each seed's decoded CSR
     run (start int64, cnt int32, both [N, Q]) → candidate starts
-    int32[N, Q*P]."""
+    int32[N, Q*P].
+
+    ``tier`` (the aligned layout, a power of two < p; the tiered
+    gather of urmap_tpu/map/seed.py): pass 1 fetches ``tier`` words a
+    seed (a run of <= tier entries lives inside one tier-word block by
+    store.align_runs' rule); the seeds whose count passes the tier are
+    fetched again at full width in rounds of at most
+    max(N*Q // tier_overflow_frac, 128) seeds until none is left, each
+    round's condition read back by the host (``kernels.tier_rounds``
+    counts the calls and rounds). The output is bit-identical to the
+    untiered gather."""
     from urmap_tpu_torch import genome_pack as gpk
     from urmap_tpu_torch.kernels import lane_rotate
 
     n, q = cnt.shape
+    if csr_aligned and not row128 and tier is not None and tier < p:
+        return _tiered_gather(positions, start.reshape(-1), cnt.reshape(-1),
+                              seed_offs.reshape(-1), valid.reshape(-1),
+                              p=p, tier=tier,
+                              overflow_frac=tier_overflow_frac) \
+            .reshape(n, q * p)
     j = torch.arange(p, dtype=torch.int32, device=cnt.device)
     ok = (j[None, None, :] < cnt[:, :, None]) & valid[:, :, None]
     flat = start.reshape(-1)
@@ -243,6 +260,50 @@ def gather_runs(positions: torch.Tensor, start: torch.Tensor,
         ok &= pos != SENTINEL               # pads between runs
     cand = pos - seed_offs[:, :, None]
     return torch.where(ok, cand, SENTINEL).reshape(n, q * p)
+
+
+def _tiered_gather(positions: torch.Tensor, flat: torch.Tensor,
+                   cnt: torch.Tensor, soff: torch.Tensor,
+                   valid: torch.Tensor, *, p: int, tier: int,
+                   overflow_frac: int) -> torch.Tensor:
+    """gather_runs' tiered branch on flat per-seed arrays [N*Q] →
+    int32[N*Q, P]: the port of urmap_tpu/map/seed.py's tier branch, its
+    ``while_loop`` a Python loop on ``.any()`` and its
+    ``jnp.nonzero(size=cap2, fill_value=0)`` ``_nonzero_padded``. The
+    fill lanes alias seed 0, so a round writes back only the lanes
+    ``do`` marks."""
+    from urmap_tpu_torch.kernels import lane_rotate, tier_rounds
+    from urmap_tpu_torch.map.pipeline import _nonzero_padded
+
+    if tier & (tier - 1):
+        raise ValueError(f"tier {tier} is not a power of two")
+    nq = flat.shape[0]
+    j = torch.arange(p, dtype=torch.int32, device=cnt.device)
+    narrow = lane_rotate.row128_fetch(positions, flat, tier, row_words=tier)
+    ok1 = ((j[None, :tier] < cnt[:, None]) & (narrow != SENTINEL)
+           & valid[:, None])
+    cand = torch.full((nq, p), SENTINEL, dtype=torch.int32,
+                      device=cnt.device)
+    cand[:, :tier] = torch.where(ok1, narrow - soff[:, None], SENTINEL)
+
+    rw = align_row_words(p)
+    ov = valid & (cnt > tier)                              # overflow
+    cap2 = min(max(nq // overflow_frac, 128), nq)
+    done = torch.zeros(nq, dtype=torch.bool, device=cnt.device)
+    rounds = 0
+    while bool((ov & ~done).any()):
+        rem = ov & ~done
+        idx = _nonzero_padded(rem, cap2)
+        do = rem[idx]
+        full = lane_rotate.row128_fetch(positions, flat[idx], p,
+                                        row_words=rw)
+        okk = (j[None, :] < cnt[idx][:, None]) & (full != SENTINEL)
+        c2 = torch.where(okk, full - soff[idx][:, None], SENTINEL)
+        cand[idx] = torch.where(do[:, None], c2, cand[idx])
+        done[idx] = done[idx] | do
+        rounds += 1
+    tier_rounds.add(rounds)
+    return cand
 
 
 def vote_top_candidates(cand: torch.Tensor, *, v: int):
