@@ -23,7 +23,8 @@ Phases, each printing one JSON line:
                records (N = 2,048, and 128 and 16,384) and B7 traceback
                bits at the paths' shapes; the seed front (2B = 32,768
                read-strands, Q = 8, plain and packed offsets over 2^27
-               slots); the shapes past the default: B1 (both modes) and
+               slots) and its slots mode (no offsets: the sharded
+               routes' front); the shapes past the default: B1 (both modes) and
                B1' at band half-widths 12, 24 and 40, B6 and B7 at 12, 24
                and 31, B6 and B1 on read blocks of 700 and 2,000, B4 at
                256 and 2,048 candidates a read; kernel vs plain version
@@ -119,6 +120,21 @@ Phases, each printing one JSON line:
 Phase 3 also holds B5's row entry at the tier widths 4 and 8 and over a
 table of 2^31 + 2^24 words (8.7 GB, freed before phase 4), and the seed
 front with packed offsets whose obase passes 2^31.
+Phase 14, mesh (after the scale phase): 14a, this process joins a
+world of one rank over NCCL and a ShardedMapper at mesh 1 x 1 (routes
+a2a and psum) maps phase 4's reads, equal to phase 4 in results, live
+traceback records and SAM bytes; 14b, four rank processes share the card
+over gloo with CUDA tensors (python3 chip_smoke.py --mesh-rank DIR,
+started by the smoke with torchrun's environment): meshes 1 x 4 and
+2 x 2 on both routes over phase 4's first 16,384 reads and phase 7's
+first 2,048 pairs (row128 tables), and one a2a run at lane slack 0.3
+(overflow rounds), each equal to the single-card runs, the kernels
+launched on every rank and no plain call; each rank's collectives, a2a
+rounds and bytes a batch and one profiled batch are printed; 14c, the
+command line as processes on the card: data-parallel -map over 2 (the
+merged body equals phase 10's) and -mesh 2x2 -route a2a over 4,
+single-end and -reverse (the single-process records, in the ranks' row
+order), with wall times and reads/s.
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and
 the final {"ok": true, ...} line. Any failed check exits non-zero.
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -605,6 +621,17 @@ def shape_cases(dev, rng, n_reads: int, sc) -> dict:
             (pk, nm, fl), nr * (nw * (15 + 55) + 2 * Q * 44),
             nbytes((pk, nm, fl)) + nr * (2 * nw * 4 * 2 + 2 * Q * 17)
             + nr * 2 * Q * 8)
+    # the slots mode (the sharded routes' front) on the same reads: no
+    # offsets table and no decode (B3's 40 a seed); out the words and per
+    # seed the slot, offs and valid (9 bytes)
+    kw = dict(k=K, q=Q, slot_bits=27 if n_reads >= 2 * B else 20,
+              offsets=None)
+    nr = n_reads // 2
+    cases["seed_front_slots"] = (
+        lambda: seed_slots.seed_front(pk, nm, fl, L_MAX, **kw),
+        lambda: seedmod.seed_front_plain(pk, nm, fl, L_MAX, **kw),
+        (pk, nm, fl), nr * (nw * (15 + 55) + 2 * Q * 40),
+        nbytes((pk, nm, fl)) + nr * (2 * nw * 4 * 2 + 2 * Q * 9))
     return cases
 
 
@@ -1673,6 +1700,8 @@ def phase_paired(dev, w: dict, mapper128, smi: str, work: str) -> dict:
     # the first pairs again: the card against a CPU PairedMapper
     t1 = time.perf_counter()
     on_results, on_sam = map_pairs_fastq(pm, db, w["r1_cpu"], w["r2_cpu"])
+    # the single-card run phase 14 holds its sharded pair runs to
+    w["paired_head"] = {"results": on_results, "sam": on_sam}
     cpu_pm = PairedMapper(Mapper(w["index"], mapper128.mcfg, mapper128.sc,
                                  device="cpu", prepared=w["prepared128"]))
     cpu_results, cpu_sam = map_pairs_fastq(cpu_pm, db, w["r1_cpu"],
@@ -2710,12 +2739,429 @@ def phase_scale(dev, mcfg, sc, smi: str, work: str, seed: int,
     return run["counts"]
 
 
+# ---- phase 14: multi-device mapping -------------------------------------
+
+N_MESH, N_MESH_PAIRS = 16_384, N_CPU_PAIRS    # phase 14b's reads and pairs
+MESH4 = ((1, 4), (2, 2))                      # (data, index) of 14b
+MESH_TIMEOUT_S = 420
+
+
+def save_prepared_arrays(prepared, d: str) -> None:
+    """Prepared tables (host arrays and meta) as .npy files and a pickle
+    of the rest, for rank processes to map in (memory-mapped)."""
+    import pickle
+
+    ht, meta = prepared
+    os.makedirs(d, exist_ok=True)
+    arrays = [k for k, v in ht.items() if isinstance(v, np.ndarray)]
+    for k in arrays:
+        np.save(os.path.join(d, f"{k}.npy"), ht[k])
+    rest = {k: v for k, v in ht.items() if k not in arrays}
+    with open(os.path.join(d, "meta.pkl"), "wb") as f:
+        pickle.dump((meta, rest, arrays), f)
+
+
+def load_prepared_arrays(d: str):
+    import pickle
+
+    with open(os.path.join(d, "meta.pkl"), "rb") as f:
+        meta, rest, arrays = pickle.load(f)
+    ht = {k: np.load(os.path.join(d, f"{k}.npy"), mmap_mode="r")
+          for k in arrays}
+    ht.update(rest)
+    return ht, meta
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    """Kernel counters summed (launches, plain calls, widths)."""
+    for name, c in counts.items():
+        t = total.setdefault(name, {"launches": 0, "plain_calls": 0})
+        t["launches"] += c["launches"]
+        t["plain_calls"] += c["plain_calls"]
+        for wd, n in c.get("widths", {}).items():
+            t.setdefault("widths", {})     # (JSON made the keys strings)
+            t["widths"][int(wd)] = t["widths"].get(int(wd), 0) + n
+    return total
+
+
+def check_mesh_counters(counts: dict, what: str) -> None:
+    """The sharded path's kernels: the seed front's slots mode (never the
+    front proper), B5's row entry, B4, B1 and B6 launched; no plain
+    version ran."""
+    for name in ("seed_front_slots", "row128_fetch", "vote", "banded_dp",
+                 "tb_dops"):
+        check(counts[name]["launches"] > 0,
+              f"{what}: {name} not launched")
+    check(counts["seed_front"]["launches"] == 0,
+          f"{what}: the seed front proper ran on the sharded path")
+    for name, c in counts.items():
+        check(c["plain_calls"] == 0, f"{what}: {name} plain version ran")
+
+
+def live_tb_differing(a: dict, b: dict) -> list:
+    """Keys of two traceback dicts whose live records differ: rows,
+    score, pos, strand and the dops words of the live lanes. The lanes'
+    column numbers are not compared: a sharded batch puts each rank's
+    lanes in a block of its own."""
+    out = [k for k in ("rows", "score", "pos", "strand")
+           if not np.array_equal(a[k], b[k])]
+    if not np.array_equal(a["dops"][:, a["cols"]], b["dops"][:, b["cols"]]):
+        out.append("dops")
+    return out
+
+
+def same_results(a: list, b: list, what: str) -> None:
+    """Per-batch MapResults: every field and the live traceback records."""
+    check(len(a) == len(b), f"{what}: {len(a)} batches vs {len(b)}")
+    diff = sorted({f for x, y in zip(a, b) for f in differing(x, y)})
+    tb_diff = sorted({k for x, y in zip(a, b)
+                      for k in live_tb_differing(x.tb, y.tb)})
+    check(not diff, f"{what}: fields differ: {diff}")
+    check(not tb_diff, f"{what}: traceback records differ: {tb_diff}")
+
+
+def per_batch(comm: dict, batches: int) -> dict:
+    return {"collectives": {k: v / batches for k, v in comm["calls"].items()},
+            "bytes_sent": {k: v / batches for k, v in comm["bytes"].items()},
+            "a2a_rounds": comm["a2a_rounds"] / batches,
+            "a2a_loops": comm["a2a_loops"] / batches}
+
+
+def mesh_rank_main(mdir: str) -> int:
+    """One rank of phase 14b, started by the smoke with torchrun's
+    environment (python3 chip_smoke.py --mesh-rank DIR): every mesh and
+    route of the spec over the same reads and pairs; rank 0 writes the
+    results and SAM bytes, every rank its counters, collectives and one
+    profiled batch."""
+    import pickle
+
+    import torch
+
+    from urmap_tpu_torch.config import MapConfig
+    from urmap_tpu_torch.dist import multihost as mh
+    from urmap_tpu_torch.dist import sharded as sh
+    from urmap_tpu_torch.index import UfiIndex
+    from urmap_tpu_torch.index.store import load_prepared
+    from urmap_tpu_torch.io.fastq import FastqReader
+
+    with open(os.path.join(mdir, "spec.json")) as f:
+        spec = json.load(f)
+    backend = mh.init_distributed("cuda")
+    dev = mh.rank_device("cuda")
+    rank = mh.process_index()
+    index = UfiIndex.load(spec["ufi"])
+    db = index.seqdb
+    mcfg = MapConfig(batch_size=B)
+    tables = {"aligned": load_prepared(index, mcfg.positions_per_seed),
+              "row128": load_prepared_arrays(spec["prepared128"])}
+    check(tables["aligned"][1]["layout"] == "aligned", "14b: aligned tables")
+    b = next(iter(FastqReader(spec["reads"], batch_size=B)))
+    out = {"rank": rank, "backend": backend, "device": str(dev),
+           "staged_by_port": [], "cases": {}}
+    results = {}
+    for name, d, i, route, slack in spec["cases"]:
+        if slack is not None:
+            os.environ["URMAP_A2A_SLACK"] = str(slack)
+        mesh = sh.make_mesh(data=d, index=i)
+        m = sh.ShardedMapper(index, mesh, mcfg, route=route, device=dev,
+                             prepared=tables["aligned"])
+        os.environ.pop("URMAP_A2A_SLACK", None)
+        m.map_codes(b.codes[:2048], b.lengths[:2048])           # warm
+        reset_counters()
+        m.comm.reset()
+        t0 = time.perf_counter()
+        se, se_sam = map_fastq(m, db, spec["reads"], B, None)
+        torch.cuda.synchronize(dev)
+        rec = {"se_map_s": time.perf_counter() - t0,
+               "se_counters": read_counters(),
+               "se_per_batch": per_batch(m.comm.snapshot(), len(se)),
+               "a2a_slack": m.a2a_slack}
+        if slack is None:
+            # a pair batch of the pairs there are, so that every rank maps
+            # some (a batch of phase 7's 8,192 would leave three ranks of
+            # a 1 x 4 mesh with padding only)
+            pm = sh.ShardedPairedMapper(sh.ShardedMapper(
+                index, mesh, MapConfig(batch_size=2 * N_MESH_PAIRS),
+                route=route, device=dev, prepared=tables["row128"]))
+            reset_counters()
+            pm.mapper.comm.reset()
+            t0 = time.perf_counter()
+            pe, pe_sam = map_pairs_fastq(pm, db, spec["r1"], spec["r2"])
+            torch.cuda.synchronize(dev)
+            rec.update(pe_map_s=time.perf_counter() - t0,
+                       pe_counters=read_counters(),
+                       pe_per_batch=per_batch(pm.mapper.comm.snapshot(),
+                                              len(pe)))
+            # one single-end batch under the profiler, on every rank
+            m.comm.reset()
+            prof = profile_call(
+                lambda: m.finish_batch(m.start_batch(b.codes, b.lengths),
+                                       b.lengths),
+                os.path.join(mdir, f"profile_{name}_rank{rank}.txt"))
+            rec["profile_one_batch"] = {
+                k: prof[k] for k in ("profiled_wall_ms", "device_busy_ms",
+                                     "device_idle_share",
+                                     "device_launches",
+                                     "port_kernels_device_ms")}
+            results[name] = {"se": se, "se_sam": se_sam, "pe": pe,
+                             "pe_sam": pe_sam}
+        else:
+            results[name] = {"se": se, "se_sam": se_sam}
+        out["cases"][name] = rec
+        mh.barrier(name)
+    with open(os.path.join(mdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    if rank == 0:
+        with open(os.path.join(mdir, "results.pkl"), "wb") as f:
+            pickle.dump(results, f)
+    mh.barrier("done")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(n: int, cmd: list, log_dir: str) -> list:
+    """n processes of ``cmd`` with torchrun's environment, all on this
+    card, stdout and stderr to log files; waits for all (killing every
+    one on a failure or past MESH_TIMEOUT_S) → their wall seconds."""
+    port = str(free_port())
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(n):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                       LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                       MASTER_ADDR="localhost", MASTER_PORT=port)
+            log = open(os.path.join(log_dir, f"rank{r}.log"), "wb")
+            logs.append(log)
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                          stdout=log, stderr=log))
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(log_dir, f"rank{r}.log"), "rb") as f:
+                tail = f.read()[-3000:].decode(errors="replace")
+            check(False, f"rank {r} of {n} ({' '.join(cmd[-8:])}) exited "
+                  f"{p.returncode}:\n{tail}")
+    return wall
+
+
+def phase_mesh(dev, w: dict, aligned: dict, smi: str, work: str) -> dict:
+    """Phase 14: multi-device mapping on the one card.
+
+    14a mesh1: this process joins a world of one rank over NCCL; a
+    ShardedMapper at mesh 1 x 1, route a2a and then psum, maps phase 4's
+    reads: results, live records and SAM bytes equal phase 4's.
+    14b mesh4: four rank processes share the card over gloo with CUDA
+    tensors: meshes 1 x 4 and 2 x 2, both routes, over phase 4's first
+    16,384 reads (aligned tables) and phase 7's first 2,048 pairs (row128
+    tables), and one a2a run with the lane slack at 0.3 (overflow
+    rounds): equal to the single-card runs, the kernels launched on
+    every rank and no plain call.
+    14c cli_mp: the command line as 2 processes (data-parallel -map over
+    phase 10's FASTQ: the merged body equals phase 10's) and as 4 at
+    -mesh 2x2 -route a2a, single-end and -reverse (the bodies hold the
+    single-process records, in the order of the ranks' rows).
+    Returns the kernel counts of the sharded runs and the a2a rounds."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from urmap_tpu_torch.config import MapConfig
+    from urmap_tpu_torch.dist import multihost as mh
+    from urmap_tpu_torch.dist import sharded as sh
+
+    mdir = os.path.join(work, "mesh")
+    os.makedirs(mdir, exist_ok=True)
+    mcfg = MapConfig(batch_size=B)
+    total = {}
+    rounds = {"a2a_loops": 0, "a2a_rounds": 0}
+
+    # 14a: a world of one rank over NCCL
+    t0 = time.perf_counter()
+    backend = mh.init_distributed(dev)
+    check(backend == "nccl", f"14a: backend {backend}, expected nccl")
+    mesh = sh.make_mesh()
+    rec = {"phase": "mesh1", "gpu": smi, "backend": backend,
+           "world": dist.get_world_size(), "mesh": mesh.shape, "routes": {}}
+    for route in ("a2a", "psum"):
+        m = sh.ShardedMapper(w["index"], mesh, mcfg, route=route, device=dev,
+                             prepared=w["prepared"])
+        reset_counters()
+        m.comm.reset()
+        t1 = time.perf_counter()
+        results, sam = map_fastq(m, w["db"], w["reads_half"], B, None)
+        torch.cuda.synchronize(dev)
+        map_s = time.perf_counter() - t1
+        counts = read_counters()
+        comm = m.comm.snapshot()
+        same_results(results, aligned["results"], f"14a {route}")
+        check(sam == aligned["sam"], f"14a {route}: SAM bytes differ")
+        check_mesh_counters(counts, f"14a {route}")
+        add_counts(total, counts)
+        rounds["a2a_loops"] += comm["a2a_loops"]
+        rounds["a2a_rounds"] += comm["a2a_rounds"]
+        rec["routes"][route] = {
+            "reads": w["n_half"], "batches": len(results), "map_s": map_s,
+            "reads_per_s": w["n_half"] / map_s,
+            "per_batch": per_batch(comm, len(results)),
+            "equal_to_phase4": True}
+        del m
+    dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+
+    # 14b: four ranks on the card over gloo
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    reads_fq = os.path.join(mdir, "reads_mesh.fq")
+    write_fastq(reads_fq, w["codes"][:N_MESH])
+    save_prepared_arrays(w["prepared128"], os.path.join(mdir, "prep128"))
+    cases = [[f"{r}_{d}x{i}", d, i, r, None] for d, i in MESH4
+             for r in ("a2a", "psum")] + [["a2a_1x4_slack0.3", 1, 4, "a2a",
+                                          0.3]]
+    spec = {"ufi": os.path.join(work, "cli.ufi"), "reads": reads_fq,
+            "r1": w["r1_cpu"], "r2": w["r2_cpu"],
+            "prepared128": os.path.join(mdir, "prep128"), "cases": cases}
+    with open(os.path.join(mdir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    for r in range(4):
+        for f in (f"rank{r}.json",):
+            if os.path.exists(os.path.join(mdir, f)):
+                os.remove(os.path.join(mdir, f))
+    wall = launch_ranks(4, [sys.executable, os.path.abspath(__file__),
+                            "--mesh-rank", mdir], mdir)
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(mdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(mdir, "results.pkl"), "rb") as f:
+        results = pickle.load(f)
+    head_se = aligned["results"][0]
+    n_se = N_MESH
+    head_sam = b"".join(aligned["sam"].splitlines(keepends=True)[:n_se])
+    pe_ref = w["paired_head"]
+    for name, *_ in cases:
+        got = results[name]
+        same_results(got["se"], [head_se], f"14b {name} single-end")
+        check(got["se_sam"] == head_sam, f"14b {name}: SAM bytes differ")
+        if "pe" in got:
+            check(len(got["pe"]) == len(pe_ref["results"]),
+                  f"14b {name}: pair batches")
+            for x, y in zip(got["pe"], pe_ref["results"]):
+                same_results([x.m1, x.m2], [y.m1, y.m2], f"14b {name} pairs")
+                check(np.array_equal(x.proper, y.proper),
+                      f"14b {name}: proper flags differ")
+            check(got["pe_sam"] == pe_ref["sam"],
+                  f"14b {name}: paired SAM bytes differ")
+    for rk in ranks:
+        check(rk["backend"] == "gloo", f"14b rank {rk['rank']}: backend "
+              f"{rk['backend']}")
+        for name, c in rk["cases"].items():
+            for key in ("se_counters", "pe_counters"):
+                if key in c:
+                    check_mesh_counters(c[key], f"14b rank {rk['rank']} "
+                                        f"{name} {key[:2]}")
+                    add_counts(total, c[key])
+            for key in ("se_per_batch", "pe_per_batch"):
+                if key in c:
+                    rounds["a2a_loops"] += c[key]["a2a_loops"]
+                    rounds["a2a_rounds"] += c[key]["a2a_rounds"]
+        emit({"phase": "mesh4_rank", "gpu": smi, **{
+            k: rk[k] for k in ("rank", "backend", "device",
+                               "staged_by_port")},
+            "gloo_note": "gloo copies CUDA tensors through host memory "
+                         "inside its own collectives",
+            "cases": {n: {k: v for k, v in c.items()
+                          if not k.endswith("_counters")}
+                      for n, c in rk["cases"].items()},
+            "counters_1x4_a2a_se": {
+                k: v["launches"]
+                for k, v in rk["cases"]["a2a_1x4"]["se_counters"].items()
+                if v["launches"]}})
+    over = ranks[0]["cases"]["a2a_1x4_slack0.3"]["se_per_batch"]
+    check(over["a2a_rounds"] > over["a2a_loops"],
+          f"14b: slack 0.3 took no overflow round ({over})")
+    emit({"phase": "mesh4", "gpu": smi, "ranks": 4, "cases": len(cases),
+          "reads": n_se, "pairs": N_MESH_PAIRS, "wall_s": wall,
+          "equal_to_single_card": True,
+          "seconds": time.perf_counter() - t0})
+
+    # 14c: the command line as several processes
+    t0 = time.perf_counter()
+    ufi = os.path.join(work, "cli.ufi")
+    runs = {}
+
+    def cli_procs(n, name, args):
+        out = os.path.join(mdir, f"{name}.sam")
+        d = os.path.join(mdir, name)
+        os.makedirs(d, exist_ok=True)
+        wall = launch_ranks(n, [sys.executable, "-m", "urmap_tpu_torch",
+                                "-map", *args, "-ufi", ufi, "-samout", out,
+                                "-batch", str(B), "-quiet"], d)
+        return out, wall
+
+    out, wall = cli_procs(2, "dp2", [w["reads_half"]])
+    body = sam_records(out)
+    check(b"".join(body) == aligned["sam"],
+          "14c: the data-parallel SAM body differs from phase 10's")
+    runs["dp2"] = {"procs": 2, "reads": w["n_half"], "wall_s": wall,
+                   "reads_per_wall_s": w["n_half"] / wall}
+    out, wall = cli_procs(4, "mesh22", [reads_fq, "-mesh", "2x2", "-route",
+                                        "a2a"])
+    body = sam_records(out)
+    check(sorted(body) == sorted(head_sam.splitlines(keepends=True)),
+          "14c: -mesh 2x2 single-end records differ from the single run's")
+    runs["mesh22_se"] = {"procs": 4, "reads": n_se, "wall_s": wall,
+                         "reads_per_wall_s": n_se / wall,
+                         "body_in_input_order": b"".join(body) == head_sam}
+    pe_one = os.path.join(mdir, "pe_one.sam")
+    one = cli_map(dev, ["-map", w["r1_cpu"], "-reverse", w["r2_cpu"], "-ufi",
+                        ufi, "-samout", pe_one, "-batch", str(B), "-quiet"])
+    out, wall = cli_procs(4, "mesh22_pe", [w["r1_cpu"], "-reverse",
+                                           w["r2_cpu"], "-mesh", "2x2",
+                                           "-route", "a2a"])
+    check(sorted(sam_records(out)) == sorted(sam_records(pe_one)),
+          "14c: -mesh 2x2 -reverse records differ from the single run's")
+    runs["mesh22_pe"] = {"procs": 4, "reads": 2 * N_MESH_PAIRS,
+                         "wall_s": wall,
+                         "reads_per_wall_s": 2 * N_MESH_PAIRS / wall,
+                         "single_process_wall_s": one["wall_s"]}
+    emit({"phase": "cli_mp", "gpu": smi, "runs": runs,
+          "seconds": time.perf_counter() - t0})
+    return {"counts": total, **rounds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reads", type=int, default=131_072)
     ap.add_argument("--pairs", type=int, default=65_536)
+    # one rank of phase 14b, started by the smoke itself
+    ap.add_argument("--mesh-rank", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.mesh_rank:
+        return mesh_rank_main(args.mesh_rank)
 
     import torch
 
@@ -2797,6 +3243,7 @@ def main(argv=None) -> int:
     tier = phase_tier(dev, w, aligned, mappers["on"], smi, work)
     phase_spill(w, work)
     scale_counts = phase_scale(dev, mcfg, sc, smi, work, args.seed)
+    mesh = phase_mesh(dev, w, aligned, smi, work)
 
     src = "urmap_tpu_torch/csrc/"
     tpu = "urmap_tpu/kernels/"
@@ -2805,6 +3252,7 @@ def main(argv=None) -> int:
     # name → (source, TPU kernel)
     sources = {
         "seed_front": ("seed_slots.cu", "seed_slots.py:192"),
+        "seed_front_slots": ("seed_slots.cu", "seed_slots.py:192"),
         "row128_fetch": ("lane_rotate.cu", "lane_rotate.py:120"),
         "vote": ("vote.cu", "vote.py:123"),
         "window_mismatches": ("lane_rotate.cu", "lane_rotate.py:120"),
@@ -2862,8 +3310,9 @@ def main(argv=None) -> int:
 
     # launches: the counts over the paths (aligned slice, row128 slice,
     # paired run, semiglobal, shapes, the cli phase's -map runs: cli,
-    # endclip, endclip_paired, secondpass, the tiered slice and the scale
-    # run), each read just after its run
+    # endclip, endclip_paired, secondpass, the tiered slice, the scale
+    # run and the sharded runs of phase 14, this process's and the four
+    # ranks' summed), each read just after its run
     # with the counters set to 0 just before it, summed; by path under
     # launches_by_path.
     # banded_semiglobal's path is phase 8 (the winners re-aligned over
@@ -2874,7 +3323,7 @@ def main(argv=None) -> int:
     paths = {"slice": aligned["counts"], "row128": r128["counts"],
              "paired": pe_counts, "semiglobal": sg_counts,
              "shapes": sh_counts, **cli_counts, "tier": tier["counts"],
-             "scale": scale_counts}
+             "scale": scale_counts, "mesh": mesh["counts"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -2898,6 +3347,7 @@ def main(argv=None) -> int:
     check(all(k["launches"] == 0 for k in kernels if k["name"] in off_path),
           f"a kernel off the paths was launched there: {kernels}")
     emit({"kernels": kernels,
+          "mesh": {k: mesh[k] for k in ("a2a_loops", "a2a_rounds")},
           "tier_rounds": {
               **{k: tier[k] for k in ("batches", "calls", "rounds")},
               "host_syncs_one_batch": {

@@ -5,8 +5,8 @@
 byte-equal index directories, -ufistats prints the same, each package's
 -map reads the other's index and writes the same SAM bytes (single-end,
 paired, -endclip both ways, -secondpass, -resume after a cut shard,
-.sam.gz, reads past -maxreadlen), and what is not ported refuses with
-its ROADMAP.md item. The @PG line carries sys.argv, so both packages run
+.sam.gz, reads past -maxreadlen), and what is not ported or not
+launchable refuses. The @PG line carries sys.argv, so both packages run
 under the same sys.argv.
 """
 
@@ -284,14 +284,19 @@ def test_version_of_python_m_matches_urmap_tpu():
 
 
 @pytest.mark.parametrize("extra,env,item", [
-    (["-mesh", "2x1"], {}, "A.10"),
-    (["-mesh", "4"], {}, "A.10"),
-    (["-route", "psum"], {}, "A.10"),
-    ([], {"JAX_COORDINATOR_ADDRESS": "localhost:1234"}, "A.10"),
-    ([], {"WORLD_SIZE": "2"}, "A.10"),
+    (["-mesh", "2x1"], {}, "torchrun --nproc-per-node 2"),
+    (["-mesh", "4"], {}, "torchrun --nproc-per-node 4"),
+    (["-mesh", "1", "-route", "ring"], {}, "a2a or psum"),
+    ([], {"JAX_COORDINATOR_ADDRESS": "localhost:1234"}, "JAX_NUM_PROCESSES"),
+    ([], {"WORLD_SIZE": "2"}, "MASTER_PORT"),
 ])
 def test_map_refuses_what_is_not_ported(corpus, monkeypatch, extra, env,
                                         item):
+    """Multi-device mapping is ported: what -map still refuses is a mesh
+    that does not span the world (here one process: a mesh of 2 or 4
+    needs that many ranks), an unknown route and a multi-process
+    environment without its rendezvous."""
+    monkeypatch.delenv("MASTER_PORT", raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(SystemExit, match=item):

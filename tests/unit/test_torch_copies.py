@@ -78,11 +78,21 @@ FUNCTION_COPIES = [
     ("dist.multihost", "Watermark"), ("dist.multihost", "ShardWriter"),
     ("dist.multihost", "merge_shards"),
     ("index.build", "_RadixSpill"), ("index.build", "_host_chunk_slots"),
+    ("dist.sharded", "_largest_pow2_divisor"),
+    ("dist.sharded", "ShardedTables"),
+    ("dist.sharded", "shard_index_tables"),
+    ("dist.sharded", "shard_prepared_tables"),
+    ("dist.sharded", "save_sharded_tables"),
+    ("dist.sharded", "load_sharded_tables"),
+    ("dist.sharded", "a2a_slack_from_index"),
 ]
 
 
 @pytest.mark.parametrize("module,name", FUNCTION_COPIES)
 def test_function_copy_equals_source(module, name):
+    """Each copy equals its source and (for dist.sharded, a module of
+    ported code beside the copies) stands under a comment line naming
+    it."""
     import importlib
     import inspect
 
@@ -90,6 +100,11 @@ def test_function_copy_equals_source(module, name):
     theirs = getattr(importlib.import_module(f"urmap_tpu.{module}"), name)
     assert inspect.getsource(ours).replace("urmap_tpu_torch", "urmap_tpu") \
         == inspect.getsource(theirs)
+    if module == "dist.sharded":
+        lines, first = inspect.getsourcelines(ours)
+        text = _read("urmap_tpu_torch", "dist", "sharded.py").decode()
+        assert text.splitlines()[first - 2] == \
+            f"# urmap_tpu/dist/sharded.py:{name}"
 
 
 # module constants copied with the comment lines above them

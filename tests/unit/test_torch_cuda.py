@@ -843,6 +843,35 @@ def test_seed_front_kernel_matches_plain(cuda_device, upload, packed, L, k,
         assert torch.equal(g, w), name
 
 
+@pytest.mark.parametrize("upload", [True, False])
+@pytest.mark.parametrize("L,k,q", [(160, 24, 8), (150, 24, 8), (704, 24, 8),
+                                   (40, 12, 3), (64, 32, 1)])
+def test_seed_front_slots_mode_matches_plain(cuda_device, upload, L, k, q):
+    """The seed front's slots mode (offsets=None, the sharded routes'
+    front) against its plain version: word planes, offs, valid and the
+    slots, counted apart from the front proper."""
+    from urmap_tpu_torch.kernels import seed_slots
+    from urmap_tpu_torch.map.seed import seed_front_plain
+
+    a, b, lens, _ = front_inputs(np.random.default_rng(L + k), 2051, L, k,
+                                 upload, False, slot_bits=14)
+    put = lambda x: torch.from_numpy(x).to(cuda_device)
+    args = (put(a), put(b), put(lens), L)
+    kw = dict(k=k, q=q, slot_bits=14, offsets=None)
+    seed_slots.counter.reset()
+    seed_slots.slots_counter.reset()
+    got = seed_slots.seed_front(*args, **kw)
+    torch.cuda.synchronize()
+    assert seed_slots.slots_counter.launches == 1
+    assert seed_slots.counter.launches == 0
+    want = seed_front_plain(*args, **kw)
+    assert len(got) == len(want) == 5
+    for name, g, w in zip(("rpacked2", "rnplane2", "offs", "valid", "slots"),
+                          got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+
+
 @pytest.mark.parametrize("hw,max_read_len,p", [(12, 160, 16), (24, 704, 16),
                                                (16, 160, 32)])
 def test_cuda_mapper_new_shapes_match_cpu(cuda_device, hw, max_read_len, p):

@@ -5,8 +5,9 @@ port and nothing else of this repository, and maps 64 planted reads
 (half of them with an indel, so the device-traceback records are
 replayed) on the CPU through the single-end SAM path with the default
 MapConfig, then a pair batch over a row128 table, then the command line
-(``cli.main`` -make_ufi and -map on the CPU; ``cli``, ``__main__`` and
-``dist.multihost`` imported by name). Afterwards no module named
+(``cli.main`` -make_ufi and -map on the CPU, then -map on a sharded 1 x 1
+mesh; ``cli``, ``__main__``, ``dist.multihost`` and ``dist.sharded``
+imported by name). Afterwards no module named
 ``urmap_tpu`` or ``urmap_tpu.*`` and no ``jax*`` may be loaded. The
 machine with the card has no JAX.
 """
@@ -79,6 +80,7 @@ assert pres.proper.all() and (pres.m1.pos == p1).all()
 assert (pres.m2.pos == p1 + 150).all() and (pres.m2.strand == 1).all()
 # the command line: -make_ufi, then -map on the CPU
 import urmap_tpu_torch.__main__, urmap_tpu_torch.dist.multihost
+import urmap_tpu_torch.dist.sharded
 from urmap_tpu_torch import cli
 with tempfile.TemporaryDirectory() as d:
     fa, fq = os.path.join(d, "g.fa"), os.path.join(d, "r.fq")
@@ -93,6 +95,12 @@ with tempfile.TemporaryDirectory() as d:
                      "-quiet"], device="cpu") == 0
     body = [ln for ln in open(sam) if not ln.startswith("@")]
     assert len(body) == 64 and sum("3D" in ln for ln in body) == 16
+    # a sharded 1 x 1 mesh in a world of one process (gloo, in-process)
+    sam1 = os.path.join(d, "m.sam")
+    assert cli.main(["-map", fq, "-ufi", ufi, "-samout", sam1, "-batch",
+                     "64", "-quiet", "-mesh", "1x1", "-route", "psum"],
+                    device="cpu") == 0
+    assert [ln for ln in open(sam1) if not ln.startswith("@")] == body
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("jax", "jaxlib", "urmap_tpu")
     or m.startswith(("jax.", "jaxlib.", "urmap_tpu."))))

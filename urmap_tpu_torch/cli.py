@@ -1,19 +1,24 @@
 """Command-line interface of the port: urmap_tpu/cli.py's flags and
-output, on one CUDA card.
+output, on CUDA cards.
 
     python -m urmap_tpu_torch -make_ufi genome.fa -output genome.ufi
     python -m urmap_tpu_torch -ufistats genome.ufi
     python -m urmap_tpu_torch -map R1.fq -ufi genome.ufi -samout out.sam
+    torchrun --nproc-per-node N -m urmap_tpu_torch -map R1.fq \
+        -ufi genome.ufi -samout out.sam [-mesh DxI -route a2a|psum]
 
 ``-make_ufi`` writes the index directory urmap_tpu writes, byte for
 byte, and each package's ``-map`` reads the other's. ``-map`` writes the
 SAM bytes urmap_tpu writes; it runs on the card (``main``'s ``device``,
 "cuda" unless a Python caller passes "cpu") and raises without one.
-What is not ported refuses with the ROADMAP.md item that holds it:
-``-mesh`` over more than one card and ``-route`` (A.10), a
-multi-process launch (A.10), ``-device_build`` (A.11: the host build
-writes the same bytes). The wide second pass (``-secondpass P``) runs
-on the host CPU, as urmap_tpu runs it on its host.
+Launched as N processes (one per card, dist/multihost.py), ``-map``
+maps data-parallel: each rank its own byte range of the FASTQ, rank 0
+merging the shards. ``-mesh DxI`` (or N, or auto) shards the index
+tables over the ranks instead (dist/sharded.py, route ``-route``):
+every rank is fed every batch and writes the rows it owns. Not ported:
+``-device_build`` (A.11: the host build writes the same bytes). The wide
+second pass (``-secondpass P``) runs on the host CPU, as urmap_tpu runs
+it on its host.
 """
 
 from __future__ import annotations
@@ -33,20 +38,24 @@ Index build:
   python -m urmap_tpu_torch -make_ufi <genome.fa> -output <genome.ufi>
       [-wordlength K] [-slot_bits B] [-maxpos N] [-veryfast]
 
-Mapping (on the CUDA card):
+Mapping (on CUDA cards):
   python -m urmap_tpu_torch -map <reads.fq> -ufi <genome.ufi> -samout <out.sam>
+  (or torchrun --nproc-per-node N -m urmap_tpu_torch -map ...)
       (.gz input and .sam.gz output supported)
       [-reverse <reads2.fq>] [-threads N] [-batch B] [-maxreadlen L]
       [-inflight D] [-endclip] [-selfcheck] [-log <file>]
       [-metrics <file.jsonl>] [-quiet] [-resume] [-profile <dir>]
-      [-secondpass P] [-mesh auto]
+      [-secondpass P] [-mesh DxI|N|auto] [-route a2a|psum]
 
 -secondpass P re-maps the unmapped and suspect reads at a gather of P
 positions a seed on the host CPU. -resume restarts a run from the last
-durable batch watermark. "-mesh auto" maps on one card when the tables
-fit it. Not ported: -mesh over more cards, -route and multi-process
-runs (ROADMAP.md A.10), -device_build (A.11; the host build writes the
-same index).
+durable batch watermark. N processes (one per card) map data-parallel
+over byte ranges of the input; -mesh DxI shards the index tables over
+the D x I ranks (which must be all of them) by slot range, -route picks
+how the lookups combine (a2a, the default, or psum); "-mesh auto"
+shards over all ranks when the tables pass 0.6 of one card's memory.
+Not ported: -device_build (A.11; the host build writes the same
+index).
 
 Index inspection:
   python -m urmap_tpu_torch -ufistats <genome.ufi>
@@ -254,45 +263,57 @@ def _auto_batch(opts: dict, index, mcfg, quiet: bool, device=None,
 
 def _make_mapper(opts: dict, index, mcfg, quiet: bool, device,
                  paired: bool = False):
-    """The single-device Mapper. "-mesh auto" keeps to it where urmap_tpu
-    would (one device, or tables inside 0.6 of its memory); where
-    urmap_tpu would shard the tables over a mesh, and for every other
-    -mesh and -route, this refuses (ROADMAP.md A.10). cmd_map re-reads
+    """The single-device Mapper, or a ShardedMapper when -mesh asks for
+    (or "auto" decides on) index sharding over the world's ranks (one
+    rank per device: torchrun --nproc-per-node N). A mesh spans the
+    world: a rank outside it would own no rows. cmd_map re-reads
     mapper.mcfg (the auto-batch shrink may have replaced it)."""
     import os
 
+    from urmap_tpu_torch.dist import multihost as mh
     from urmap_tpu_torch.map import Mapper
 
-    if "route" in opts:
-        raise SystemExit(f"-route {opts['route']}: the sharded seed lookup "
-                         "is not ported (ROADMAP.md A.10)")
     spec = opts.get("mesh")
-    if spec:
-        spec = str(spec)
-        if spec != "auto":
-            raise SystemExit(f"-mesh {spec}: index sharding over a device "
-                             "mesh is not ported (ROADMAP.md A.10)")
-        import torch
+    if not spec:
+        return Mapper(index, _auto_batch(opts, index, mcfg, quiet, device,
+                                         paired), device=device)
+    from urmap_tpu_torch.dist.sharded import ShardedMapper, make_mesh
 
-        on_card = device.type == "cuda"
-        ndev = torch.cuda.device_count() if on_card else 1
-        if on_card:
+    spec = str(spec)
+    world = mh.launch_env().world
+    data = index_ax = None            # -mesh N and auto: the default split
+    if spec == "auto":
+        if device.type == "cuda":
             budget = _device_mem_bytes(device) * 0.6
         else:
             budget = (float(os.environ.get("URMAP_DEVICE_MEM_GB", "16"))
                       * 0.6 * 2**30)
         tbytes = _table_bytes(index)
-        if ndev > 1 and tbytes > budget:
+        if world == 1 or tbytes <= budget:
+            if not quiet:
+                print(f"-mesh auto: single device "
+                      f"({tbytes / 2**30:.1f} GiB tables, {world} ranks)",
+                      file=sys.stderr)
+            return Mapper(index, _auto_batch(opts, index, mcfg, quiet,
+                                             device, paired), device=device)
+    else:
+        if "x" in spec:
+            data, index_ax = (int(t) for t in spec.split("x", 1))
+        n = data * index_ax if data else int(spec)
+        if n != world:
             raise SystemExit(
-                f"-mesh auto: {tbytes / 2**30:.1f} GiB of tables exceed "
-                f"one device and would shard over {ndev}; index sharding "
-                "is not ported (ROADMAP.md A.10)")
-        if not quiet:
-            print(f"-mesh auto: single device "
-                  f"({tbytes / 2**30:.1f} GiB tables, {ndev} devices)",
-                  file=sys.stderr)
-    return Mapper(index, _auto_batch(opts, index, mcfg, quiet, device,
-                                     paired), device=device)
+                f"-mesh {spec}: a mesh takes one rank per device and spans "
+                f"the world, which has {world} rank(s); launch {n} ranks: "
+                f"torchrun --nproc-per-node {n} -m urmap_tpu_torch -map ...")
+    route = str(opts.get("route", "a2a"))
+    if route not in ("a2a", "psum"):
+        raise SystemExit(f"-route {route}: a2a or psum")
+    mh.init_distributed(device)
+    mesh = make_mesh(data=data, index=index_ax)
+    if not quiet:
+        print(f"sharded mesh: data={mesh.data} x index={mesh.index} ranks, "
+              f"route={route}", file=sys.stderr)
+    return ShardedMapper(index, mesh, mcfg, route=route, device=device)
 
 
 def _profile(opts: dict, device):
@@ -322,9 +343,9 @@ def _profile(opts: dict, device):
 def cmd_map(opts: dict, device="cuda") -> int:
     from urmap_tpu_torch.dist import multihost as mh
 
-    mh.maybe_init_distributed()
+    # one rank per device; the launcher's environment (dist/multihost.py)
+    device = mh.maybe_init_distributed(device)
 
-    from urmap_tpu_torch.device import require_device
     from urmap_tpu_torch.index import UfiIndex
     from urmap_tpu_torch.io import FastqReader
     from urmap_tpu_torch.io import sam as samio
@@ -341,7 +362,6 @@ def cmd_map(opts: dict, device="cuda") -> int:
         raise SystemExit("-map requires -samout <out.sam>")
     reverse = opts.get("reverse")
     quiet = bool(opts.get("quiet"))
-    device = require_device(device)
 
     mkw = {}
     if "batch" in opts:
@@ -376,10 +396,16 @@ def cmd_map(opts: dict, device="cuda") -> int:
     mapper = _make_mapper(opts, index, mcfg, quiet, device,
                           paired=bool(reverse))
     mcfg = mapper.mcfg   # the auto-batch shrink may have replaced it
+    from urmap_tpu_torch.dist.sharded import (ShardedMapper,
+                                              ShardedPairedMapper)
+
+    rank, nproc = mh.process_index(), mh.process_count()
+    # a mesh over several ranks: replicated feeding, each rank writes the
+    # rows it owns (ShardedMapper.finish_batch_local)
+    mesh_local_rows = isinstance(mapper, ShardedMapper) and nproc > 1
     metrics = MetricsLogger(str(opts["metrics"]) if "metrics" in opts else None)
     progress = Progress("reads") if not quiet else None
     cmdline = "urmap-tpu " + " ".join(sys.argv[1:])
-    rank, nproc = mh.process_index(), mh.process_count()
     resume = bool(opts.get("resume"))
 
     genome = index.seqdb.codes
@@ -418,11 +444,25 @@ def cmd_map(opts: dict, device="cuda") -> int:
               file=sys.stderr)
     from urmap_tpu_torch.io.fastq import PrefetchIterator
 
+    # data-parallel ranks: uncompressed inputs split into record-aligned
+    # byte ranges, so each rank parses only its own slice (paired files
+    # cut at the same records); gzip, or a mate cut that cannot be
+    # located, falls back to round-robin batches
+    byte_range = rev_byte_range = None
+    if nproc > 1 and not mesh_local_rows and not str(fq).endswith(".gz"):
+        if reverse and not str(reverse).endswith(".gz"):
+            pr = mh.paired_fastq_byte_ranges(fq, str(reverse), nproc)
+            if pr is not None:
+                byte_range, rev_byte_range = pr[0][rank], pr[1][rank]
+        elif not reverse:
+            byte_range = mh.fastq_byte_ranges(fq, nproc)[rank]
     # paired mode: half the pairs per batch (PairedMapper docstring)
     reader = FastqReader(fq, str(reverse) if reverse else None,
                          batch_size=(mcfg.batch_size // 2 if reverse
                                      else mcfg.batch_size),
-                         max_read_len=mcfg.max_read_len)
+                         max_read_len=mcfg.max_read_len,
+                         byte_range=byte_range,
+                         reverse_byte_range=rev_byte_range)
     native = reader.native and sam_native.available()
     # -threads N: host worker threads of the drain pool; 0 = synchronous
     # (no prefetch, no pool)
@@ -431,7 +471,9 @@ def cmd_map(opts: dict, device="cuda") -> int:
     if reader.paired:
         from urmap_tpu_torch.map.pair import PairedMapper
 
-        pmapper = PairedMapper(mapper)
+        pmapper = (ShardedPairedMapper(mapper)
+                   if isinstance(mapper, ShardedMapper)
+                   else PairedMapper(mapper))
 
     # upload prep (pad + 2-bit pack) on the prefetch thread: the
     # dispatch thread is the critical path
@@ -456,11 +498,18 @@ def cmd_map(opts: dict, device="cuda") -> int:
         return mapper.start_batch(item.codes, item.lengths, prepacked=pk)
 
     def sync_one(entry, handle):
-        """Block until one batch's results are on the host."""
+        """Block until one batch's results are on the host; on a mesh
+        of several ranks only this rank's rows, as (result, global row
+        indices)."""
         item = entry[0]
         if pmapper is not None:
             fwd, rev = item
+            if mesh_local_rows:
+                return pmapper.finish_batch_local(handle, fwd.lengths,
+                                                  rev.lengths)
             return pmapper.finish_batch(handle, fwd.lengths, rev.lengths)
+        if mesh_local_rows:
+            return mapper.finish_batch_local(handle, item.lengths)
         return mapper.finish_batch(handle, item.lengths)
 
     def format_one(entry, res):
@@ -468,6 +517,13 @@ def cmd_map(opts: dict, device="cuda") -> int:
         worker pool; the wide second pass rides here too, beside the
         next device batch."""
         item = entry[0]
+        if mesh_local_rows:
+            res, rows = res
+            if pmapper is not None:
+                fwd, rev = item
+                item = (fwd.take(rows), rev.take(rows))
+            else:
+                item = item.take(rows)
         if pmapper is not None:
             fwd, rev = item
             res = pmapper.second_pass(fwd.codes, fwd.lengths, rev.codes,
@@ -533,8 +589,13 @@ def cmd_map(opts: dict, device="cuda") -> int:
         metrics.log(**stats)
 
     def my_batches():
+        my_no = 0
         for batch_no, item in enumerate(batches):
-            if batch_no < writer.skip_batches:
+            if byte_range is None and nproc > 1 and not mesh_local_rows \
+                    and batch_no % nproc != rank:
+                continue   # round-robin fallback (gzip / paired input)
+            my_no += 1
+            if my_no <= writer.skip_batches:
                 continue
             yield item
 
@@ -550,8 +611,9 @@ def cmd_map(opts: dict, device="cuda") -> int:
     writer.close()
 
     mh.barrier("map-done")
-    mh.merge_shards(str(samout), nproc,
-                    samio.sam_header(index.seqdb, cmdline).encode("ascii"))
+    if rank == 0:
+        mh.merge_shards(str(samout), nproc,
+                        samio.sam_header(index.seqdb, cmdline).encode("ascii"))
     mh.barrier("merge-done")
 
     el = time.monotonic() - t_map0

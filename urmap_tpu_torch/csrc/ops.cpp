@@ -90,21 +90,25 @@ void require_dp(const Tensor& windows, const Tensor& reads,
 // The seed front: (rpacked2, rnplane2 int32[2B, nw], offs int32[2B, Q],
 // valid bool[2B, Q], start int64[2B, Q], cnt int32[2B, Q]). `a`, `b`:
 // the upload blocks (uint8) or the forward word planes (int32 [B, nw]).
-// `obase` given: `offsets` is the packed row128 table.
+// `obase` given: `offsets` is the packed row128 table. No `offsets`: the
+// slots mode, start empty [0] and each seed's slot in place of cnt.
 std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor> seed_front(
     const Tensor& a, const Tensor& b, const Tensor& lengths, int64_t L,
-    int64_t k, int64_t q, int64_t slot_bits, const Tensor& offsets,
-    const std::optional<Tensor>& obase, int64_t cnt_bits,
-    int64_t block_bits) {
+    int64_t k, int64_t q, int64_t slot_bits,
+    const std::optional<Tensor>& offsets, const std::optional<Tensor>& obase,
+    int64_t cnt_bits, int64_t block_bits) {
   const bool upload = a.scalar_type() == at::kByte;
   const int64_t nw = (L + 15) / 16;
   require(a, "a", upload ? at::kByte : at::kInt, 2);
   require(b, "b", upload ? at::kByte : at::kInt, 2);
   require(lengths, "lengths", at::kInt, 1);
-  require(offsets, "offsets", at::kInt, 1);
   same_device(a, b, "b");
   same_device(a, lengths, "lengths");
-  same_device(a, offsets, "offsets");
+  const bool slots_mode = !offsets.has_value();
+  if (!slots_mode) {
+    require(*offsets, "offsets", at::kInt, 1);
+    same_device(a, *offsets, "offsets");
+  }
   const int64_t B = a.size(0);
   TORCH_CHECK_VALUE(L >= k && k >= 1 && k <= 32 && slot_bits >= 1 &&
                         slot_bits <= 31 && q >= 1,
@@ -115,40 +119,44 @@ std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor> seed_front(
                     "seed_front: a ", a.sizes(), ", b ", b.sizes(),
                     ", lengths ", lengths.sizes(), " (", nw, " words)");
   const int64_t slots = int64_t{1} << slot_bits;
-  if (obase.has_value()) {
+  if (slots_mode) {
+    TORCH_CHECK_VALUE(!obase.has_value(),
+                      "seed_front: obase without offsets");
+  } else if (obase.has_value()) {
     require(*obase, "obase", at::kInt, 1);
     same_device(a, *obase, "obase");
     TORCH_CHECK_VALUE(cnt_bits >= 1 && cnt_bits <= 16 && block_bits >= 0 &&
                           block_bits <= 31 &&
-                          2 * offsets.size(0) >= slots &&
+                          2 * offsets->size(0) >= slots &&
                           obase->size(0) >=
                               ((slots - 1) >> block_bits) + 1,
-                      "seed_front: packed offsets ", offsets.sizes(),
+                      "seed_front: packed offsets ", offsets->sizes(),
                       ", obase ", obase->sizes(), " for 2^", slot_bits,
                       " slots (cnt_bits ", cnt_bits, ", block_bits ",
                       block_bits, ")");
   } else {
-    TORCH_CHECK_VALUE(offsets.size(0) >= slots + 1, "seed_front: offsets ",
-                      offsets.sizes(), " for 2^", slot_bits, " slots");
+    TORCH_CHECK_VALUE(offsets->size(0) >= slots + 1, "seed_front: offsets ",
+                      offsets->sizes(), " for 2^", slot_bits, " slots");
   }
   const c10::cuda::CUDAGuard guard(a.device());
   Tensor rp2 = at::empty({2 * B, nw}, like(a, at::kInt));
   Tensor rn2 = at::empty({2 * B, nw}, like(a, at::kInt));
   Tensor offs = at::empty({2 * B, q}, like(a, at::kInt));
   Tensor valid = at::empty({2 * B, q}, like(a, at::kBool));
-  Tensor start = at::empty({2 * B, q}, like(a, at::kLong));
+  Tensor start = at::empty({slots_mode ? 0 : 2 * B, q}, like(a, at::kLong));
   Tensor cnt = at::empty({2 * B, q}, like(a, at::kInt));
   launched(urmap_seed_front(
                upload ? a.data_ptr() : nullptr,
                upload ? b.data_ptr() : nullptr, (int)a.size(1),
                (int)b.size(1), upload ? nullptr : a.data_ptr(),
                upload ? nullptr : b.data_ptr(), lengths.data_ptr(),
-               offsets.data_ptr(),
+               slots_mode ? nullptr : offsets->data_ptr(),
                obase.has_value() ? obase->data_ptr() : nullptr,
                (int)cnt_bits, (int)block_bits, rp2.data_ptr(),
                rn2.data_ptr(), offs.data_ptr(), valid.data_ptr(),
-               start.data_ptr(), cnt.data_ptr(), (int)B, (int)nw, (int)L,
-               (int)k, (int)q, (int)slot_bits, stream_of(a)),
+               slots_mode ? nullptr : start.data_ptr(), cnt.data_ptr(),
+               (int)B, (int)nw, (int)L, (int)k, (int)q, (int)slot_bits,
+               stream_of(a)),
            "urmap_seed_front");
   return {rp2, rn2, offs, valid, start, cnt};
 }
@@ -378,7 +386,7 @@ Tensor window_mismatches(const Tensor& ginter, int64_t base_off,
 
 TORCH_LIBRARY(urmap, m) {
   m.def("seed_front(Tensor a, Tensor b, Tensor lengths, int L, int k, "
-        "int q, int slot_bits, Tensor offsets, Tensor? obase, int cnt_bits, "
+        "int q, int slot_bits, Tensor? offsets, Tensor? obase, int cnt_bits, "
         "int block_bits) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
   m.def("vote(Tensor cand, int v) -> (Tensor, Tensor)");
   m.def("banded_dp(Tensor windows, Tensor reads, Tensor lengths, int hw, "

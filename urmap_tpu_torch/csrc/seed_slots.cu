@@ -34,7 +34,11 @@
 //        [S >> block_bits]);
 //   out: rpacked2 and rnplane2 int32 [2B, nw] (forward rows, then the
 //        reverse-complement rows), offs int32 and valid bool [2B, Q], and
-//        per (read-strand, seed) start int64 and cnt int32 of its CSR run.
+//        per (read-strand, seed) start int64 and cnt int32 of its CSR run;
+//        in slots mode (offsets nullptr) the seed's slot int32 [2B, Q] in
+//        place of cnt and no start: the output of the TPU kernel itself,
+//        which the sharded routes take (a rank holds one slot range of
+//        the offsets, so the run is decoded where the slot is owned).
 // Design: one warp per read. The lanes load the read's upload bytes or
 // words once (neighbouring lanes neighbouring words), build the forward
 // planes into registers and shared memory, write them, then build the
@@ -228,23 +232,29 @@ __global__ void __launch_bounds__(kFrontWarps * 32)
                funnel(c[1], c[2], wsh), funnel(nn[1], nn[2], wsh), lo, hi,
                okbits);
     const uint32_t slot = hash_words(lo, hi) & mask;
-    // the seed's CSR run: plain offsets, or the packed half-word and its
-    // block's base (start = base + delta, in 64 bits)
-    long long st;
-    uint32_t n_run;
-    if (in.obase) {
-      const uint32_t wd = in.offsets[slot >> 1];
-      const uint32_t u = (slot & 1u ? wd >> 16 : wd) & 0xFFFFu;
-      st = (long long)in.obase[slot >> in.block_bits] + (u >> in.cnt_bits);
-      n_run = u & ((1u << in.cnt_bits) - 1u);
-    } else {
-      const uint32_t a = in.offsets[slot];
-      st = a;
-      n_run = in.offsets[slot + 1] - a;
-    }
     const long long o = ((long long)s * B + r) * q + qi;
-    out.start[o] = st;
-    out.cnt[o] = (int32_t)n_run;
+    if (!in.offsets) {
+      // slots mode: the slot itself (a uint32 bit pattern) in place of
+      // the run, for a caller whose table holds one slot range only
+      out.cnt[o] = (int32_t)slot;
+    } else {
+      // the seed's CSR run: plain offsets, or the packed half-word and
+      // its block's base (start = base + delta, in 64 bits)
+      long long st;
+      uint32_t n_run;
+      if (in.obase) {
+        const uint32_t wd = in.offsets[slot >> 1];
+        const uint32_t u = (slot & 1u ? wd >> 16 : wd) & 0xFFFFu;
+        st = (long long)in.obase[slot >> in.block_bits] + (u >> in.cnt_bits);
+        n_run = u & ((1u << in.cnt_bits) - 1u);
+      } else {
+        const uint32_t a = in.offsets[slot];
+        st = a;
+        n_run = in.offsets[slot + 1] - a;
+      }
+      out.start[o] = st;
+      out.cnt[o] = (int32_t)n_run;
+    }
     out.offs[o] = off;
     out.valid[o] = okbits == 0u && len >= k;
   }

@@ -16,7 +16,8 @@ extern "C" {
 
 // B3, redesigned as the seed front, seed_slots.cu. packed/nmask: the upload
 // blocks (rp/rn nullptr), or rp/rn the word planes (packed nullptr);
-// obase nullptr for plain offsets.
+// obase nullptr for plain offsets; offsets nullptr for the slots mode (the
+// slot written to cnt, start untouched).
 int urmap_seed_front(const void* packed, const void* nmask, int pk_cols,
                      int nm_cols, const void* rp, const void* rn,
                      const void* lengths, const void* offsets,

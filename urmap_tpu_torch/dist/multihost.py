@@ -1,52 +1,176 @@
-"""Single-process part of urmap_tpu/dist/multihost.py: per-host input
-sharding, the watermarked SAM shard writer and the shard merge, which
-the CLI's ``-map`` writes through (``-resume`` restarts from the last
-durable batch), on one process.
+"""Multi-process wiring over torch.distributed: process init, per-host
+input sharding, the watermarked SAM shard writer and the shard merge,
+which the CLI's ``-map`` writes through (``-resume`` restarts from the
+last durable batch). A port of urmap_tpu/dist/multihost.py.
+
+Process model: one process (rank) per device. A launcher starts the
+ranks (``torchrun --nproc-per-node N python -m urmap_tpu_torch -map
+...``) and this module reads its environment: RANK, WORLD_SIZE,
+LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR and MASTER_PORT. Where
+WORLD_SIZE is not set, the reference's names stand in for it:
+JAX_COORDINATOR_ADDRESS (or COORDINATOR_ADDRESS) as host:port,
+JAX_NUM_PROCESSES and JAX_PROCESS_ID (local rank = rank there). A
+rank's device is ``cuda:{LOCAL_RANK % torch.cuda.device_count()}``
+unless the caller asks for the CPU.
+
+Backend, by rule: "nccl" when the ranks map on CUDA and every rank of
+the node has a card of its own (device_count() >= LOCAL_WORLD_SIZE);
+"gloo" on the CPU and when ranks share a card. Gloo takes CUDA tensors
+for every collective the sharded routes run (all-reduce, all-gather,
+all-to-all: dist/sharded.py); it copies them through host memory
+itself, so nothing here stages a collective. Host barriers run on a
+gloo group under either backend. A world of one rank (no launcher)
+initialises on an in-process store, so that a one-card mesh runs its
+collectives for real.
 
 The functions from ``_align_to_record`` to ``merge_shards`` are the
 reference's, copied verbatim (tests/unit/test_torch_copies.py holds them
-by text). Multi-process runs are not ported (ROADMAP.md A.10): this
-process is rank 0 of 1, ``barrier`` does nothing, and
-``maybe_init_distributed`` refuses an environment that launches more
-than one process, so that no rank quietly writes the whole output as
-rank 0 of 1.
+by text).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 from dataclasses import dataclass
 
 __all__ = [
-    "maybe_init_distributed", "process_index", "process_count",
+    "maybe_init_distributed", "init_distributed", "launch_env",
+    "pick_backend", "rank_device", "process_index", "process_count",
     "fastq_byte_ranges", "paired_fastq_byte_ranges", "ShardWriter",
     "merge_shards", "barrier",
 ]
 
+# the gloo group host barriers run on (the world's under gloo)
+_host_group = None
 
-def maybe_init_distributed() -> None:
-    """SystemExit when the environment asks for a multi-process job: a
-    coordinator address (JAX_COORDINATOR_ADDRESS or COORDINATOR_ADDRESS,
-    as urmap_tpu reads them) or torch's WORLD_SIZE above 1. Otherwise a
-    no-op: the run is one process."""
-    addr = (os.environ.get("JAX_COORDINATOR_ADDRESS")
-            or os.environ.get("COORDINATOR_ADDRESS"))
-    world = int(os.environ.get("WORLD_SIZE", "1") or "1")
-    if addr or world > 1:
-        why = (f"coordinator address {addr!r}" if addr
-               else f"WORLD_SIZE={world}")
-        raise SystemExit(
-            f"multi-process mapping ({why}) is not ported (ROADMAP.md "
-            "A.10): run one process per input, or urmap_tpu")
+
+@dataclass
+class LaunchEnv:
+    rank: int
+    world: int
+    local_rank: int
+    local_world: int
+    addr: str | None      # host:port of the rendezvous; None: world of 1
+
+
+def launch_env() -> LaunchEnv:
+    """The launcher's environment (module docstring), or a world of 1.
+    SystemExit for a launch that names several processes but not where
+    they meet: no rank could join the others."""
+    env = os.environ
+    if env.get("WORLD_SIZE"):
+        world = int(env["WORLD_SIZE"])
+        rank = int(env.get("RANK", "0"))
+        addr = None
+        if world > 1:
+            if not env.get("MASTER_PORT"):
+                raise SystemExit(
+                    f"WORLD_SIZE={world} without MASTER_PORT (and "
+                    "MASTER_ADDR, RANK): launch the ranks with torchrun "
+                    "--nproc-per-node N, which sets them")
+            addr = (f"{env.get('MASTER_ADDR', 'localhost')}:"
+                    f"{env['MASTER_PORT']}")
+        return LaunchEnv(rank, world, int(env.get("LOCAL_RANK", rank)),
+                         int(env.get("LOCAL_WORLD_SIZE", world)), addr)
+    addr = env.get("JAX_COORDINATOR_ADDRESS") or env.get(
+        "COORDINATOR_ADDRESS")
+    if addr:
+        if not env.get("JAX_NUM_PROCESSES"):
+            raise SystemExit(
+                f"coordinator address {addr!r} without JAX_NUM_PROCESSES "
+                "(and JAX_PROCESS_ID): set them, or launch the ranks with "
+                "torchrun --nproc-per-node N")
+        world = int(env["JAX_NUM_PROCESSES"])
+        rank = int(env.get("JAX_PROCESS_ID", "0"))
+        return LaunchEnv(rank, world, rank, world, addr if world > 1 else None)
+    return LaunchEnv(0, 1, 0, 1, None)
+
+
+def pick_backend(device_type: str, local_world: int) -> str:
+    """The backend rule of the module docstring."""
+    import torch
+
+    if device_type == "cuda" and torch.cuda.device_count() >= local_world:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(device="cuda"):
+    """This rank's device: ``cuda`` without an index becomes
+    cuda:{LOCAL_RANK % device_count()}; anything else as given. Raises
+    without a card (device.require_device)."""
+    import torch
+
+    from urmap_tpu_torch.device import require_device
+
+    dev = require_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda",
+                           launch_env().local_rank % torch.cuda.device_count())
+    return dev
+
+
+def init_distributed(device="cuda") -> str:
+    """Initialise torch.distributed for this rank (idempotent) → the
+    backend. A multi-process launch joins its rendezvous; a single
+    process forms a world of 1 on an in-process store. Prints the
+    backend; under NCCL also forms the gloo group of the host barriers.
+    Where the ranks map on CUDA, local rank 0 builds the kernels while
+    the others wait at a barrier (one nvcc per source, not one per
+    rank)."""
+    import torch
+    import torch.distributed as dist
+
+    global _host_group
+    if dist.is_initialized():
+        return dist.get_backend()
+    dev = rank_device(device)
+    env = launch_env()
+    backend = pick_backend(dev.type, env.local_world)
+    kw = {}
+    if backend == "nccl":
+        torch.cuda.set_device(dev)
+        kw["device_id"] = dev
+    if env.addr is None:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, **kw)
+    else:
+        dist.init_process_group(backend, init_method=f"tcp://{env.addr}",
+                                rank=env.rank, world_size=env.world, **kw)
+    _host_group = (dist.new_group(backend="gloo") if backend == "nccl"
+                   else dist.group.WORLD)
+    print(f"urmap-tpu: rank {env.rank} of {env.world} on {dev}, "
+          f"backend {backend}", file=sys.stderr)
+    if dev.type == "cuda" and env.world > 1:
+        from urmap_tpu_torch.kernels import _build
+
+        if env.local_rank == 0:
+            _build.build()
+        barrier("kernels-built")
+    return backend
+
+
+def maybe_init_distributed(device="cuda"):
+    """init_distributed when the environment launches more than one
+    process, a no-op for a single process → this rank's device
+    (rank_device)."""
+    if launch_env().world > 1:
+        init_distributed(device)
+    return rank_device(device)
 
 
 def process_index() -> int:
-    return 0
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def process_count() -> int:
-    return 1
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _align_to_record(f, pos: int, limit: int) -> int:
@@ -248,4 +372,9 @@ def merge_shards(out_path: str, n_shards: int, header: bytes,
 
 
 def barrier(name: str = "urmap") -> None:
-    """Cross-process barrier: a no-op, the run is one process."""
+    """Cross-process barrier on the host group (a no-op for one
+    process). ``name`` labels the call site, as in urmap_tpu."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier(group=_host_group)

@@ -87,7 +87,9 @@ tier_rounds = Rounds()
 
 
 def counters() -> list[Counter]:
-    """Every kernel's counter, in main-path order. The last four have
+    """Every kernel's counter, in main-path order (the seed front's
+    slots mode beside the front: the sharded routes run it in the
+    front's place). The last four have
     no caller on the mapping path: B1' in both modes (the byte-genome
     DP; the mapper aligns from the packed genome), the literal rotate of
     B5 (the fetch entries never gather whole rows) and B7's bits mode.
@@ -96,7 +98,8 @@ def counters() -> list[Counter]:
     from urmap_tpu_torch.kernels import (banded_dp, lane_rotate, seed_slots,
                                          tb_dp, vote)
 
-    return [seed_slots.counter, lane_rotate.fetch_counter, vote.counter,
+    return [seed_slots.counter, seed_slots.slots_counter,
+            lane_rotate.fetch_counter, vote.counter,
             lane_rotate.mismatch_counter, lane_rotate.codes_counter,
             banded_dp.counter, banded_dp.clip_counter, tb_dp.counter,
             lane_rotate.window_counter, banded_dp.semiglobal_counter,
@@ -104,9 +107,10 @@ def counters() -> list[Counter]:
             tb_dp.bits_counter]
 
 
-# counters of kernels that the aligned and row128 mapping paths never
-# launch
-OFF_PATH = ("row128_window_fetch", "banded_semiglobal",
+# counters of kernels that the aligned and row128 mapping paths on one
+# card never launch (the slots mode of the seed front runs on the sharded
+# routes only, dist/sharded.py)
+OFF_PATH = ("seed_front_slots", "row128_window_fetch", "banded_semiglobal",
             "banded_semiglobal_clip", "rotate_narrow", "tb_bits")
 # under end_clip every DP runs in clip mode (the clip-rescue lane is off)
 # and the device traceback is off (map.pipeline.tb_enabled)

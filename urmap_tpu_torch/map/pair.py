@@ -154,18 +154,23 @@ def _rescue_scan(tables: dict, anchor_pos: torch.Tensor,
 def map_pairs_device(tables: dict, r1: torch.Tensor, l1: torch.Tensor,
                      r2: torch.Tensor, l2: torch.Tensor, *,
                      icfg: IndexConfig, mcfg: MapConfig, sc: ScoreConfig,
-                     tb: bool = False, stats: dict | None = None) -> dict:
+                     tb: bool = False, stats: dict | None = None,
+                     gather_runner=None, dp_runner=None) -> dict:
     """One pair batch → {"m1", "m2": per-mate call dicts, "proper"} and,
     with ``tb``, ``_tb`` (tb_pass_device over both mates' winners, rows
     [0, B) mate 1 and [B, 2B) mate 2). r1/r2 uint8[B, L] read codes as
     sequenced (pad READ_N), l1/l2 int32[B]. ``stats``, when given, gets
-    ``rescue_rounds`` added."""
+    ``rescue_rounds`` added. ``gather_runner``, ``dp_runner``: the
+    sharded routes' candidate stages (pipeline.candidates_batch_device);
+    pairing, concordance and the rescue scan read the replicated genome
+    and stay local."""
     B, L = r1.shape
     dev = r1.device
     reads = torch.cat([r1, r2], dim=0)
     lens = torch.cat([l1, l2], dim=0)
     c = candidates_batch_device(tables, reads, lens, icfg=icfg, mcfg=mcfg,
-                                sc=sc)
+                                sc=sc, gather_runner=gather_runner,
+                                dp_runner=dp_runner)
     words = c.pop("_words")
     c1 = {k: v[:B] for k, v in c.items()}
     c2 = {k: v[B:] for k, v in c.items()}
@@ -341,14 +346,15 @@ def map_pairs_device(tables: dict, r1: torch.Tensor, l1: torch.Tensor,
 
 def map_pairs_packed(tables: dict, pk1, nm1, l1, pk2, nm2, l2, *,
                      icfg: IndexConfig, mcfg: MapConfig, sc: ScoreConfig,
-                     tb: bool = False,
-                     stats: dict | None = None) -> torch.Tensor:
+                     tb: bool = False, stats: dict | None = None,
+                     gather_runner=None, dp_runner=None) -> torch.Tensor:
     """The paired step from the packed upload blocks
     (genome_pack.pack_read_codes_host) to ONE int32 array, as the
     reference's make_map_pairs_fn builds it: [Bp, 2*PACKED_COLS + 1]
     (mate 1's pack_out columns, mate 2's, then proper); with ``tb``
     flattened and followed by the flattened traceback matrix, so a
-    batch costs one device-to-host copy."""
+    batch costs one device-to-host copy. ``gather_runner``,
+    ``dp_runner``: see map_pairs_device."""
     from urmap_tpu_torch import genome_pack as gpk
 
     L = mcfg.max_read_len
@@ -358,7 +364,8 @@ def map_pairs_packed(tables: dict, pk1, nm1, l1, pk2, nm2, l2, *,
     r2 = gpk.unpack_words_to_codes(
         *gpk.read_words_from_upload(pk2, nm2, l2, nw), L)
     out = map_pairs_device(tables, r1, l1, r2, l2, icfg=icfg, mcfg=mcfg,
-                           sc=sc, tb=tb, stats=stats)
+                           sc=sc, tb=tb, stats=stats,
+                           gather_runner=gather_runner, dp_runner=dp_runner)
     packed = torch.cat([pack_out(out["m1"]), pack_out(out["m2"]),
                         out["proper"].to(torch.int32)[:, None]], dim=1)
     if tb:

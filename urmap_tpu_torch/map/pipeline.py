@@ -195,11 +195,19 @@ def _fold(x: torch.Tensor, rows: int, v: int) -> torch.Tensor:
 
 def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
                             icfg: IndexConfig, mcfg: MapConfig,
-                            sc: ScoreConfig, packed_reads=None) -> dict:
+                            sc: ScoreConfig, packed_reads=None,
+                            gather_runner=None, dp_runner=None) -> dict:
     """Seed → vote → ungapped verify → bucketed banded DP → clip lane,
     both strands. ``packed_reads``: the (packed, nmask) upload blocks of
     genome_pack.pack_read_codes_host, in place of ``reads`` (uint8
-    codes [B, L]). Returns per-read candidate arrays [B, 2V] (forward
+    codes [B, L]). ``gather_runner(slots, offs, valid) → cand int32[2B,
+    Q*P]`` and ``dp_runner(cand, reads, lens, rpacked, rnplane) →
+    (scores, d0, ungapped, span)``: the sharded routes' stages
+    (dist/sharded.py). With a gather runner the seed front runs in its
+    slots mode and the runner fetches the candidates (a rank holds one
+    slot range of the tables); a DP runner takes the main DP bucket in
+    place of banded_packed (the clip-rescue lane stays local, as in the
+    reference). Returns per-read candidate arrays [B, 2V] (forward
     candidates in columns [:V], reverse-complement in [V:]): pos, score,
     strand, valid, ungapped, span; and per read dp_ran, clipped, weak,
     nsat; and ``_words``, the word planes of both strands (rpacked2,
@@ -225,15 +233,24 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     # in one launch on the card (kernels/seed_slots.py)
     fwd = packed_reads if packed_reads is not None \
         else gpk.pack_reads(reads, lengths, nw)
-    rpacked2, rnplane2, offs, valid, start, cnt = seed_slots.seed_front(
-        *fwd, lengths, L, k=icfg.k, q=q, slot_bits=icfg.slot_bits,
-        offsets=tables["offsets"], obase=tables.get("obase"),
-        cnt_bits=off_bits[0] if off_bits else 0,
-        block_bits=off_bits[1] if off_bits else 0)
+    if gather_runner is None:
+        rpacked2, rnplane2, offs, valid, start, cnt = seed_slots.seed_front(
+            *fwd, lengths, L, k=icfg.k, q=q, slot_bits=icfg.slot_bits,
+            offsets=tables["offsets"], obase=tables.get("obase"),
+            cnt_bits=off_bits[0] if off_bits else 0,
+            block_bits=off_bits[1] if off_bits else 0)
+        cand = gather_runs(tables["positions"], start, cnt, offs, valid,
+                           p=p, csr_aligned=tables["csr_aligned"],
+                           tier=tables["gather_tier"],
+                           row128=tables["row128"])
+    else:
+        # ``valid`` stays every seed's global validity: the vote floor's
+        # nval below reads it; the runner masks what its shard owns
+        rpacked2, rnplane2, offs, valid, slots = seed_slots.seed_front(
+            *fwd, lengths, L, k=icfg.k, q=q, slot_bits=icfg.slot_bits,
+            offsets=None)
+        cand = gather_runner(slots, offs, valid)
     lengths2 = torch.cat([lengths, lengths], dim=0)         # [2B]
-    cand = gather_runs(tables["positions"], start, cnt, offs, valid, p=p,
-                       csr_aligned=tables["csr_aligned"],
-                       tier=tables["gather_tier"], row128=tables["row128"])
     top_cand, votes = vote.vote(cand, v=v)                  # [2B, V]
     if mcfg.min_votes > 1:
         # vote floor with per-read fallback (config.MapConfig.min_votes)
@@ -295,9 +312,10 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     ung_masked = torch.where(valid_c, _fold(ung, B, v), NEG)
     best_ung = ung_masked.amax(dim=-1)
 
-    def dp_round(idx, clip_open):
+    def dp_round(idx, clip_open, runner=None):
         """Banded DP on every candidate of reads ``idx`` (both strands)
-        → (sub_cand [D, 2V], (scores, d0, ungapped, span) [D, 2V])."""
+        → (sub_cand [D, 2V], (scores, d0, ungapped, span) [D, 2V]);
+        ``runner``: a DP runner in place of banded_packed."""
         d = idx.shape[0]
         sub_cand = cand_f[idx]
         sub_rp = torch.cat([rpacked2[idx], rpacked2[B + idx]], dim=0)
@@ -307,13 +325,17 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
         sub_lens2 = torch.cat([lengths[idx], lengths[idx]], dim=0)
         dflat = torch.cat([sub_cand[:, :v], sub_cand[:, v:]], dim=0) \
             .reshape(-1)                                    # [2D*V]
-        outs = banded_packed(
-            ginter, base_off, torch.where(dflat == SENTINEL, 0, dflat),
-            sub_reads2.repeat_interleave(v, dim=0),
-            sub_lens2.repeat_interleave(v),
-            sub_rp.repeat_interleave(v, dim=0),
-            sub_rn.repeat_interleave(v, dim=0),
-            hw=mcfg.band_halfwidth, sc=sc, clip_open=clip_open)
+        args = (torch.where(dflat == SENTINEL, 0, dflat),
+                sub_reads2.repeat_interleave(v, dim=0),
+                sub_lens2.repeat_interleave(v),
+                sub_rp.repeat_interleave(v, dim=0),
+                sub_rn.repeat_interleave(v, dim=0))
+        if runner is not None:
+            outs = runner(*args)
+        else:
+            outs = banded_packed(ginter, base_off, *args,
+                                 hw=mcfg.band_halfwidth, sc=sc,
+                                 clip_open=clip_open)
         return sub_cand, [_fold(x, d, v) for x in outs]
 
     # ---- gapped-DP bucket rounds ----
@@ -335,7 +357,8 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
         rem = need_dp & ~served
         idx = _nonzero_padded(rem, D)
         do = rem[idx]
-        sub_cand, (dp_s, dp_d0, dp_ung, dp_sp) = dp_round(idx, clip)
+        sub_cand, (dp_s, dp_d0, dp_ung, dp_sp) = dp_round(idx, clip,
+                                                          dp_runner)
         upd = do[:, None] & (sub_cand != SENTINEL)
         scores_f[idx] = torch.where(upd, dp_s, scores_f[idx])
         pos_f[idx] = torch.where(upd, sub_cand + dp_d0, pos_f[idx])
@@ -380,11 +403,15 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
 
 def map_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
                      icfg: IndexConfig, mcfg: MapConfig, sc: ScoreConfig,
-                     packed_reads=None, tb: bool = False) -> dict:
+                     packed_reads=None, tb: bool = False,
+                     gather_runner=None, dp_runner=None) -> dict:
     """One batch → per-read calls with the weak and suspect MAPQ gates;
-    with ``tb`` also ``_tb``, the traceback matrix of tb_pass_device."""
+    with ``tb`` also ``_tb``, the traceback matrix of tb_pass_device.
+    ``gather_runner``, ``dp_runner``: see candidates_batch_device."""
     c = candidates_batch_device(tables, reads, lengths, icfg=icfg,
-                                mcfg=mcfg, sc=sc, packed_reads=packed_reads)
+                                mcfg=mcfg, sc=sc, packed_reads=packed_reads,
+                                gather_runner=gather_runner,
+                                dp_runner=dp_runner)
     words = c.pop("_words")
     out = select_hits(c["pos"], c["score"], c["strand"], c["valid"],
                       lengths, c["ungapped"], mc=mcfg, k=icfg.k)

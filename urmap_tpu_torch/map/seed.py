@@ -161,7 +161,7 @@ def decode_offsets(offsets: torch.Tensor, slots: torch.Tensor, *,
 
 def seed_front_plain(a: torch.Tensor, b: torch.Tensor,
                      lengths: torch.Tensor, L: int, *, k: int, q: int,
-                     slot_bits: int, offsets: torch.Tensor,
+                     slot_bits: int, offsets: torch.Tensor | None,
                      obase: torch.Tensor | None = None, cnt_bits: int = 0,
                      block_bits: int = 0):
     """The plain version of the seed front (kernels/seed_slots.py
@@ -169,7 +169,10 @@ def seed_front_plain(a: torch.Tensor, b: torch.Tensor,
     uint8: genome_pack.read_words_from_upload) or as given (int32 word
     planes), their reverse complements, both strands stacked, the seed
     slots and the CSR offset decode → (rpacked2, rnplane2, offs, valid,
-    start, cnt); rows [0, B) forward, [B, 2B) reverse complement."""
+    start, cnt); rows [0, B) forward, [B, 2B) reverse complement.
+    ``offsets`` None (the slots mode): no decode, → (rpacked2, rnplane2,
+    offs, valid, slots), slots int32 [2B, Q] as extract_seed_slots_words
+    gives them."""
     from urmap_tpu_torch import genome_pack as gpk
 
     nw = -(-L // gpk.BASES_PER_WORD)
@@ -183,6 +186,8 @@ def seed_front_plain(a: torch.Tensor, b: torch.Tensor,
     lengths2 = torch.cat([lengths, lengths], dim=0)
     slots, offs, valid = extract_seed_slots_words(
         rpacked2, rnplane2, lengths2, L, k=k, q=q, slot_bits=slot_bits)
+    if offsets is None:
+        return rpacked2, rnplane2, offs, valid, slots
     start, cnt = decode_offsets(offsets, slots, obase=obase,
                                 cnt_bits=cnt_bits, block_bits=block_bits)
     return rpacked2, rnplane2, offs, valid, start, cnt
