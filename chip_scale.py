@@ -4,6 +4,7 @@ pipeline runs it, and what each stage costs.
 
     python3 chip_scale.py --gbp 3.1 [--reads 1048576] [--pairs 262144]
                           [--spill-dir DIR] [--work DIR] [--seed 0]
+                          [--device-build]
 
 1. the host: free -g, df -h of the work and spill directories, nproc,
    the card's name and power limit; the disk the run needs, estimated,
@@ -17,7 +18,12 @@ pipeline runs it, and what each stage costs.
    own, auto slot_bits (30 for a human genome), the disk radix spill
    under --spill-dir (its TMPDIR): seconds by stage (from the spill
    directory's life and the index files' times), the spill's peak bytes
-   on disk, the process's peak RSS, the index directory's bytes;
+   on disk, the process's peak RSS, the index directory's bytes, the
+   SHA-256 of its offsets.npy and positions.npy; with --device-build
+   first `-make_ufi -device_build` (k-mers extracted, hashed and sorted
+   on the card in chunks of DEFAULT_CHUNK words, slot-sorted into the
+   spill) with the same figures, its index removed before the host
+   build, whose hashes must equal it;
 4. map: `python -m urmap_tpu_torch -map` single-end and with -reverse,
    each in a process of its own, so the process start, the index load
    and the table upload are in the wall time: reads/s of the map loop
@@ -43,6 +49,7 @@ marker file .chip_scale); any other is refused, since a run clears it.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -253,6 +260,56 @@ def correct_of(calls: dict, chrom, pos, strand, sel) -> np.ndarray:
             & (calls["strand"][sel] == strand[i]))
 
 
+def sha256_of(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while blk := f.read(1 << 24):
+            h.update(blk)
+    return h.hexdigest()
+
+
+def make_ufi(fa: str, ufi: str, env: dict, work: str, spill: str, starts,
+             labels: list, device: bool = False) -> dict:
+    """`-make_ufi` (with -device_build when ``device``) in a process of
+    its own: its record, printed, with the stage seconds, the spill's
+    peak bytes and the SHA-256 of the index's offsets and positions."""
+    name = "make_ufi_device" if device else "make_ufi"
+    smp = Sampler(spill)
+    r = run_child(["-make_ufi", fa, "-output", ufi,
+                   *(["-device_build"] if device else [])], env,
+                  os.path.join(work, f"{name}.log"), smp)
+    smoke.check(r["rc"] == 0, f"{name} exit {r['rc']}: {r['stderr_tail']}")
+
+    def mtime(*p):
+        return os.path.getmtime(os.path.join(ufi, *p)) - (
+            time.time() - (time.perf_counter() - smp.t0))
+
+    t_saved = mtime("seqdb.npz", "meta.json")
+    t_prep = mtime("prepared_p16", "meta.json")
+    with open(os.path.join(ufi, "seqdb.npz", "meta.json")) as f:
+        sdb = json.load(f)
+    with open(os.path.join(ufi, "prepared_p16", "meta.json")) as f:
+        pmeta = json.load(f)
+    smoke.check(sdb["starts"] == [int(x) for x in starts]
+                and sdb["labels"] == labels, "the genome's layout")
+    t_hash = time.perf_counter()
+    rec = {"phase": name, **r,
+           "stage_s": {"parse_fasta": smp.t_first,
+                       "extract_and_spill": (smp.t_peak or 0)
+                       - (smp.t_first or 0),
+                       "finalize": (smp.t_gone or 0) - (smp.t_peak or 0),
+                       "save_index": t_saved - (smp.t_gone or 0),
+                       "prepare_and_save": t_prep - t_saved},
+           "spill_peak_bytes": smp.peak, "index_bytes": dir_bytes(ufi),
+           "spill_left": os.listdir(spill), "prepared": pmeta,
+           "sha256": {a: sha256_of(os.path.join(ufi, f"{a}.npy"))
+                      for a in ("offsets", "positions")}}
+    rec["hash_s"] = time.perf_counter() - t_hash
+    smoke.emit(rec)
+    smoke.check(not os.listdir(spill), "the spill directory is not empty")
+    return rec
+
+
 def cli_summary(text: str) -> dict:
     m = re.search(r"([\d,]+) reads, [\d,]+ mapped \(([\d.]+)%\), "
                   r"([\d.]+)s \(([\d,]+) reads/s\)", text)
@@ -339,6 +396,9 @@ def main(argv=None) -> int:
     ap.add_argument("--spill-dir", default=None)
     ap.add_argument("--work", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device-build", action="store_true",
+                    help="build the index on the card first, then on the "
+                    "host, and compare the two")
     args = ap.parse_args(argv)
 
     import torch
@@ -389,33 +449,18 @@ def main(argv=None) -> int:
     env = {**os.environ, "TMPDIR": spill,
            "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
     ufi = os.path.join(work, "genome.ufi")
-    smp = Sampler(spill)
-    r = run_child(["-make_ufi", fa, "-output", ufi], env,
-                  os.path.join(work, "make_ufi.log"), smp)
-    smoke.check(r["rc"] == 0, f"-make_ufi exit {r['rc']}: {r['stderr_tail']}")
-
-    def mtime(*p):
-        return os.path.getmtime(os.path.join(ufi, *p)) - (
-            time.time() - (time.perf_counter() - smp.t0))
-
-    t_saved = mtime("seqdb.npz", "meta.json")
-    t_prep = mtime("prepared_p16", "meta.json")
-    with open(os.path.join(ufi, "seqdb.npz", "meta.json")) as f:
-        sdb = json.load(f)
-    with open(os.path.join(ufi, "prepared_p16", "meta.json")) as f:
-        pmeta = json.load(f)
-    smoke.check(sdb["starts"] == [int(x) for x in starts]
-                and sdb["labels"] == labels, "the genome's layout")
-    smoke.emit({"phase": "make_ufi", **r,
-          "stage_s": {"parse_fasta": smp.t_first,
-                      "extract_and_spill": (smp.t_peak or 0)
-                      - (smp.t_first or 0),
-                      "finalize": (smp.t_gone or 0) - (smp.t_peak or 0),
-                      "save_index": t_saved - (smp.t_gone or 0),
-                      "prepare_and_save": t_prep - t_saved},
-          "spill_peak_bytes": smp.peak, "index_bytes": dir_bytes(ufi),
-          "spill_left": os.listdir(spill), "prepared": pmeta})
-    smoke.check(not os.listdir(spill), "the spill directory is not empty")
+    if args.device_build:
+        dbuild = make_ufi(fa, ufi, env, work, spill, starts, labels,
+                          device=True)
+        shutil.rmtree(ufi)
+    hbuild = make_ufi(fa, ufi, env, work, spill, starts, labels)
+    if args.device_build:
+        same = dbuild["sha256"] == hbuild["sha256"]
+        smoke.emit({"phase": "device_vs_host_build", "gpu": smi,
+                    "equal": same, "wall_s": {"device": dbuild["wall_s"],
+                                              "host": hbuild["wall_s"]}})
+        smoke.check(same, "the device build's offsets or positions differ "
+                    "from the host build's")
 
     sam = os.path.join(work, "se.sam")
     r = run_child(["-map", os.path.join(work, "se.fq"), "-ufi", ufi,

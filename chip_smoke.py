@@ -135,6 +135,15 @@ command line as processes on the card: data-parallel -map over 2 (the
 merged body equals phase 10's) and -mesh 2x2 -route a2a over 4,
 single-end and -reverse (the single-process records, in the ranks' row
 order), with wall times and reads/s.
+Phase 15, device_build (after phase 14): phase 4's index built on the
+card (build_index's backend="device": k-mers extracted, hashed and
+sorted with torch ops, no hand kernel) in one chunk, timed in turns with
+the host build; in chunks of 2^23 words, merged in RAM; and through the
+disk radix spill in chunks of 2^23 words, each equal to phase 4's host
+build; one chunk on the card equal to the same on CPU tensors, numbered
+past 2^31, at slot_bits 30 and 31; `-make_ufi -device_build` equal to
+phase 10's directory byte for byte; one chunk of each size profiled by
+stage (extract + hash, sort, trim, device → host copy).
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and
 the final {"ok": true, ...} line. Any failed check exits non-zero.
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -3152,6 +3161,262 @@ def phase_mesh(dev, w: dict, aligned: dict, smi: str, work: str) -> dict:
     return {"counts": total, **rounds}
 
 
+# ---- phase 15: the device index build ------------------------------------
+
+# (d)'s chunk: SPILL_SMALL_CHUNK words from here, numbered as if they lay
+# past 2^31 (GRCh38's chunk starts run to ~3.1e9)
+DEVICE_BUILD_BASE = 3_000_000_000
+
+
+def chunk_stage_ms(dev, codes, k: int, slot_bits: int, table_path: str):
+    """One _chunk_sorted_slots call on ``codes`` (already on the card)
+    under torch.profiler: device ms by stage, told apart by kernel name
+    and order. The sort's kernels are cub's radix sort ("sort" or
+    "radix" in the name); extract_hash is every kernel before the first
+    of them (extract_words, the hash, the sentinel, the sort's index
+    fill and key copy); trim_narrow every kernel after the last (the valid count, the
+    narrowing to 32 bits); copy the device → host copies.
+
+    The profiler's schedule runs one call as warm-up before the call it
+    records (its CUDA activity buffers are set up by then), and a trace
+    counts only when it holds at least as many device kernels as the
+    host made kernel launches in it: a trace that dropped device records
+    (seen in a process that had profiled before) is taken again, up to
+    three times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from urmap_tpu_torch.index import build as bmod
+
+    def launches_on_host(evs) -> int:
+        return sum(e.device_type == DeviceType.CPU and e.name.startswith(
+            ("cudaLaunchKernel", "cuLaunchKernel")) for e in evs)
+
+    def on_device(e) -> bool:    # kernels and copies, not the step's span
+        return e.device_type == DeviceType.CUDA \
+            and not e.name.startswith("ProfilerStep")
+
+    def is_kernel(e) -> bool:
+        return on_device(e) and not e.name.startswith(("Memcpy", "Memset"))
+
+    bmod._chunk_sorted_slots(codes, 0, k, slot_bits)        # warm
+    tries = []
+    for _ in range(3):
+        got = {}
+
+        def ready(p):
+            got["events"] = list(p.events())
+            got["table"] = p.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40)
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=ready) as prof:
+            for _step in range(2):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                bmod._chunk_sorted_slots(codes, 0, k, slot_bits)
+                torch.cuda.synchronize(dev)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        evs = got.get("events", [])
+        host_n = launches_on_host(evs)
+        dev_n = sum(is_kernel(e) for e in evs)
+        tries.append([host_n, dev_n])
+        if host_n and dev_n >= host_n:
+            break
+    check(host_n and dev_n >= host_n,
+          f"phase 15: no complete trace (host launches, device kernels) "
+          f"in 3 tries: {tries}")
+    with open(table_path, "w") as f:
+        f.write(got["table"])
+    evs = sorted(filter(on_device, evs), key=lambda e: e.time_range.start)
+
+    def is_sort(e) -> bool:
+        return "sort" in e.name.lower() or "radix" in e.name.lower()
+
+    first = next((i for i, e in enumerate(evs) if is_sort(e)), None)
+    last = max((i for i, e in enumerate(evs) if is_sort(e)), default=None)
+    check(first is not None, "phase 15: no sort kernel in the profile: "
+          f"{sorted({e.name[:50] for e in evs})}")
+    stages = {s: [0.0, 0] for s in ("extract_hash", "sort", "trim_narrow",
+                                    "copy_to_host")}
+    for i, e in enumerate(evs):
+        if "Memcpy DtoH" in e.name:
+            st = "copy_to_host"
+        elif i < first:
+            st = "extract_hash"
+        elif i <= last:
+            st = "sort"
+        else:
+            st = "trim_narrow"
+        stages[st][0] += e.time_range.elapsed_us() / 1e3
+        stages[st][1] += 1
+    busy = sum(v[0] for v in stages.values())
+    return {"words": int(codes.shape[0]) - k + 1, "wall_ms": wall_ms,
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms,
+            "launches": len(evs), "kernel_launches": dev_n,
+            "profile_tries": len(tries), "stages_ms_launches": stages}
+
+
+def phase_device_build(dev, w: dict, smi: str, work: str) -> dict:
+    """Phase 15: phase 4's index built on the card (build_index's
+    backend="device"): (a) in one chunk in RAM, timed in turns with the
+    host build of the same genome (host, card, card, host); (b) in chunks
+    of SPILL_SMALL_CHUNK words in RAM (the sorted runs merged on the
+    host); (c) through the disk radix spill (spill_threshold 2^20
+    words) in chunks of SPILL_SMALL_CHUNK words, each handed to the
+    spill slot-sorted. Each must equal phase 4's host build, and the
+    spill leave nothing. (d) _chunk_sorted_slots on the card equals the
+    same function on CPU tensors, for a chunk numbered past 2^31, at
+    slot_bits 30 and 31. (e) -make_ufi -device_build writes phase 10's
+    -make_ufi directory byte for byte. One chunk of each size is
+    profiled by stage."""
+    import contextlib
+    import filecmp
+    import io
+    import shutil
+
+    import torch
+
+    from urmap_tpu_torch import cli
+    from urmap_tpu_torch.index import build as bmod
+
+    t_phase = time.perf_counter()
+    db, want, cfg = w["db"], w["index"], w["index"].config
+    n_words = len(db.codes) - cfg.k + 1
+
+    def same(idx) -> bool:
+        return (np.array_equal(idx.offsets, want.offsets)
+                and np.array_equal(idx.positions, want.positions))
+
+    def timed(**kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        idx = bmod.build_index(db, cfg, **kw)
+        return idx, time.perf_counter() - t0
+
+    # (a) one chunk (DEFAULT_CHUNK > the genome's words), host and card
+    # in turns
+    check(n_words <= bmod.DEFAULT_CHUNK, "phase 15: (a) is not one chunk")
+    walls = {"host": [], "device": []}
+    equal = {}
+    for name in ("host", "device", "device", "host"):
+        kw = {"backend": "device", "device": dev} if name == "device" else {}
+        idx, sec = timed(**kw)
+        walls[name].append(sec)
+        equal.setdefault(f"one_chunk_{name}", True)
+        equal[f"one_chunk_{name}"] &= same(idx)
+        del idx
+    # (b) SPILL_SMALL_CHUNK words a chunk, in RAM
+    runs = []
+    real_merge = bmod._merge_sorted_runs
+
+    def merge(r):
+        runs.append(len(r))
+        return real_merge(r)
+
+    bmod._merge_sorted_runs = merge
+    try:
+        idx, walls["device_chunked"] = timed(
+            backend="device", device=dev, chunk=SPILL_SMALL_CHUNK)
+    finally:
+        bmod._merge_sorted_runs = real_merge
+    equal["chunked"] = same(idx)
+    del idx
+    # (c) through the spill, slot-sorted chunks
+    spill_dir = os.path.join(work, "device_spill")
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    os.makedirs(spill_dir)
+    adds, on_disk = [], []
+    real_add, real_fin = bmod._RadixSpill.add, bmod._RadixSpill.finalize
+
+    def add(self, sl, po, sorted_by_slot=False):
+        adds.append(sorted_by_slot)
+        return real_add(self, sl, po, sorted_by_slot)
+
+    def finalize(self, *a):
+        for f in self.files:
+            f.flush()
+        on_disk.append(sum(os.path.getsize(p) for p in self.paths))
+        return real_fin(self, *a)
+
+    bmod._RadixSpill.add, bmod._RadixSpill.finalize = add, finalize
+    try:
+        idx, walls["device_spill"] = timed(
+            backend="device", device=dev, chunk=SPILL_SMALL_CHUNK,
+            spill_threshold=1 << 20, spill_dir=spill_dir)
+    finally:
+        bmod._RadixSpill.add, bmod._RadixSpill.finalize = real_add, real_fin
+    equal["spill"] = same(idx)
+    del idx
+    left = os.listdir(spill_dir)
+    # (d) card = CPU tensors, a chunk numbered past 2^31
+    mid = len(db.codes) // 2
+    sub = np.ascontiguousarray(
+        db.codes[mid : mid + SPILL_SMALL_CHUNK + cfg.k - 1])
+    d_equal = {}
+    for bits in (30, 31):
+        got = bmod._chunk_sorted_slots(torch.from_numpy(sub).to(dev),
+                                       DEVICE_BUILD_BASE, cfg.k, bits)
+        ref = bmod._chunk_sorted_slots(torch.from_numpy(sub),
+                                       DEVICE_BUILD_BASE, cfg.k, bits)
+        d_equal[bits] = (all(np.array_equal(a, b) for a, b in zip(got, ref))
+                         and got[0].dtype == got[1].dtype == np.uint32
+                         and int(got[1].min()) >= DEVICE_BUILD_BASE
+                         and len(got[0]) > 0)
+    # (e) the command line, against phase 10's directory
+    ufi = os.path.join(work, "cli_device.ufi")
+    shutil.rmtree(ufi, ignore_errors=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        check(cli.main(["-make_ufi", w["fasta"], "-output", ufi,
+                        "-device_build"]) == 0, "-make_ufi -device_build")
+    cli_s = time.perf_counter() - t0
+    host_ufi = os.path.join(work, "cli.ufi")
+    files = sorted(os.path.relpath(os.path.join(d, n), ufi)
+                   for d, _, names in os.walk(ufi) for n in names)
+    theirs = sorted(os.path.relpath(os.path.join(d, n), host_ufi)
+                    for d, _, names in os.walk(host_ufi) for n in names)
+    _m, mismatch, errors = filecmp.cmpfiles(host_ufi, ufi, files,
+                                            shallow=False)
+    # one chunk of each size, profiled by stage
+    whole = torch.from_numpy(np.ascontiguousarray(db.codes)).to(dev)
+    stage = {
+        "one_chunk": chunk_stage_ms(dev, whole, cfg.k, cfg.slot_bits,
+                                    os.path.join(work, "profile_build.txt")),
+        "chunk_2^23": chunk_stage_ms(
+            dev, whole[: SPILL_SMALL_CHUNK + cfg.k - 1], cfg.k,
+            cfg.slot_bits, os.path.join(work, "profile_build_2^23.txt"))}
+    del whole
+    torch.cuda.empty_cache()
+    emit({"phase": "device_build", "gpu": smi, "host_cpu": cpu_model(),
+          "genome_bases": int(db.total_len), "words": n_words,
+          "slot_bits": cfg.slot_bits, "positions": int(want.num_positions),
+          "build_s": walls, "equal_to_host_build": equal,
+          "merged_runs": runs, "spill_adds_sorted_by_slot": adds,
+          "spill_bytes": on_disk, "spill_dir_left": left,
+          "card_equal_cpu_past_2^31": d_equal,
+          "cli_make_ufi_device_s": cli_s, "cli_files": len(files),
+          "cli_mismatch": mismatch + errors, "chunk_stages": stage,
+          "seconds": time.perf_counter() - t_phase})
+    n_chunks = -(-n_words // SPILL_SMALL_CHUNK)
+    check(all(equal.values()), f"phase 15: a build differs: {equal}")
+    check(runs == [n_chunks] and n_chunks > 4,
+          f"phase 15: (b) merged {runs} runs, not {n_chunks}")
+    check(adds == [True] * n_chunks and n_chunks >= 4 and len(on_disk) == 1
+          and on_disk[0] > 0, f"phase 15: (c) spill adds {adds}")
+    check(not left, f"phase 15: the spill left {left}")
+    check(all(d_equal.values()), f"phase 15: (d) card != CPU: {d_equal}")
+    check(files == theirs and len(files) > 3 and not mismatch
+          and not errors,
+          f"phase 15: (e) -device_build's directory differs: "
+          f"{mismatch + errors}, {len(files)} vs {len(theirs)} files")
+    return stage
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3244,6 +3509,7 @@ def main(argv=None) -> int:
     phase_spill(w, work)
     scale_counts = phase_scale(dev, mcfg, sc, smi, work, args.seed)
     mesh = phase_mesh(dev, w, aligned, smi, work)
+    phase_device_build(dev, w, smi, work)
 
     src = "urmap_tpu_torch/csrc/"
     tpu = "urmap_tpu/kernels/"

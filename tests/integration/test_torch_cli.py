@@ -5,8 +5,9 @@
 byte-equal index directories, -ufistats prints the same, each package's
 -map reads the other's index and writes the same SAM bytes (single-end,
 paired, -endclip both ways, -secondpass, -resume after a cut shard,
-.sam.gz, reads past -maxreadlen), and what is not ported or not
-launchable refuses. The @PG line carries sys.argv, so both packages run
+.sam.gz, reads past -maxreadlen), -make_ufi -device_build on the CPU
+writes the same directory, and what is not ported or not launchable
+refuses. The @PG line carries sys.argv, so both packages run
 under the same sys.argv.
 """
 
@@ -305,13 +306,35 @@ def test_map_refuses_what_is_not_ported(corpus, monkeypatch, extra, env,
                    str(corpus / "no.sam"), "-quiet", *extra], device="cpu")
 
 
-def test_device_build_and_cardless_map_refuse(corpus):
-    with pytest.raises(SystemExit, match="A.11"):
-        tcli.main(["-make_ufi", str(corpus / "g.fa"), "-output",
-                   str(corpus / "no.ufi"), "-device_build"])
-    assert not os.path.exists(corpus / "no.ufi")
+def test_device_build_and_cardless_map_refuse(corpus, monkeypatch):
+    """-make_ufi -device_build on the CPU writes urmap_tpu's -device_build
+    directory byte for byte, prepared tables included; without a card it
+    and -map raise naming cuda, and -make_ufi writes nothing."""
+    fa = str(corpus / "g.fa")
+    monkeypatch.setattr(sys, "argv", ["urmap"])
+    for name, mod, kw in (("jd", jcli, {}), ("td", tcli, {"device": "cpu"})):
+        assert mod.main(["-make_ufi", fa, "-output", str(corpus / name),
+                         "-slot_bits", "16", "-device_build"], **kw) == 0
+    j, t = str(corpus / "jd"), str(corpus / "td")
+    files = sorted(os.path.relpath(os.path.join(base, n), t)
+                   for base, _dirs, names in os.walk(t) for n in names)
+    assert files == sorted(
+        os.path.relpath(os.path.join(base, n), j)
+        for base, _dirs, names in os.walk(j) for n in names)
+    assert any(f.startswith("prepared_") for f in files)
+    match, mismatch, errors = filecmp.cmpfiles(j, t, files, shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
+    # the same bytes as the host build's directory
+    match, mismatch, errors = filecmp.cmpfiles(str(corpus / "t.ufi"), t,
+                                               files, shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
     if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present: -map runs on it")
+        pytest.skip("a CUDA card is present: -device_build and -map run "
+                    "on it")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcli.main(["-make_ufi", fa, "-output", str(corpus / "no.ufi"),
+                   "-device_build"])
+    assert not os.path.exists(corpus / "no.ufi")
     with pytest.raises(RuntimeError, match="cuda"):
         tcli.main(["-map", str(corpus / "se.fq"), "-ufi",
                    str(corpus / "t.ufi"), "-samout",

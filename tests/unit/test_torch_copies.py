@@ -78,6 +78,7 @@ FUNCTION_COPIES = [
     ("dist.multihost", "Watermark"), ("dist.multihost", "ShardWriter"),
     ("dist.multihost", "merge_shards"),
     ("index.build", "_RadixSpill"), ("index.build", "_host_chunk_slots"),
+    ("index.build", "_merge_sorted_runs"),
     ("dist.sharded", "_largest_pow2_divisor"),
     ("dist.sharded", "ShardedTables"),
     ("dist.sharded", "shard_index_tables"),
@@ -108,7 +109,8 @@ def test_function_copy_equals_source(module, name):
 
 
 # module constants copied with the comment lines above them
-CONSTANT_COPIES = [("index/build.py", "SPILL_THRESHOLD")]
+CONSTANT_COPIES = [("index/build.py", "SPILL_THRESHOLD"),
+                   ("index/build.py", "DEFAULT_CHUNK")]
 
 
 @pytest.mark.parametrize("rel,name", CONSTANT_COPIES)

@@ -1109,3 +1109,33 @@ def test_cuda_mapper_tiered_gather_matches_cpu(cuda_device, monkeypatch):
                                       err_msg=f)
         np.testing.assert_array_equal(getattr(got, f),
                                       getattr(untiered, f), err_msg=f)
+
+
+@pytest.mark.parametrize("k,slot_bits", [(24, 14), (17, 11)])
+def test_device_build_on_the_card_matches_host(cuda_device, tmp_path, k,
+                                               slot_bits):
+    """build_index(backend="device") on the card, in RAM and through the
+    spill in several chunks, equals the host build; one chunk numbered
+    past 2^31 equals the same on CPU tensors, at slot_bits 30 and 31."""
+    from urmap_tpu_torch.config import IndexConfig
+    from urmap_tpu_torch.index import build as bmod
+
+    rng = np.random.default_rng(11)
+    db = make_seqdb(rng, [60_000, 9_000])
+    cfg = IndexConfig(k=k, slot_bits=slot_bits, max_positions_per_slot=8)
+    want = build_index(db, cfg)
+    for kw in ({}, {"chunk": 7_001},
+               {"chunk": 5_000, "spill_threshold": 9_000,
+                "spill_dir": str(tmp_path)}):
+        got = build_index(db, cfg, backend="device", **kw)
+        np.testing.assert_array_equal(got.offsets, want.offsets)
+        np.testing.assert_array_equal(got.positions, want.positions)
+    assert not list(tmp_path.iterdir())
+    codes = db.codes[: 20_000 + k - 1]
+    for bits in (30, 31):
+        on_card = bmod._chunk_sorted_slots(
+            torch.from_numpy(codes).to(cuda_device), 3_000_000_000, k, bits)
+        on_cpu = bmod._chunk_sorted_slots(torch.from_numpy(codes),
+                                          3_000_000_000, k, bits)
+        for a, b in zip(on_card, on_cpu):
+            np.testing.assert_array_equal(a, b)

@@ -1,10 +1,11 @@
 """urmap_tpu_torch imports and maps without JAX and without urmap_tpu.
 
 A subprocess makes ``import jax`` fail, imports every module of the
-port and nothing else of this repository, and maps 64 planted reads
-(half of them with an indel, so the device-traceback records are
-replayed) on the CPU through the single-end SAM path with the default
-MapConfig, then a pair batch over a row128 table, then the command line
+port and nothing else of this repository, builds the index on the host
+and with the device backend on the CPU (equal tables), and maps 64
+planted reads (half of them with an indel, so the device-traceback
+records are replayed) on the CPU through the single-end SAM path with
+the default MapConfig, then a pair batch over a row128 table, then the command line
 (``cli.main`` -make_ufi and -map on the CPU, then -map on a sharded 1 x 1
 mesh; ``cli``, ``__main__``, ``dist.multihost`` and ``dist.sharded``
 imported by name). Afterwards no module named
@@ -51,6 +52,10 @@ codes = codes[:, :150].copy()
 codes[1::2] = alphabet.COMP_CODE[codes[1::2, ::-1]]
 mapper = Mapper(build_index(db), MapConfig(batch_size=64), device="cpu")
 assert mapper.tb
+# the device build (extract, hash and sort in torch) in 4 chunks
+dev_index = build_index(db, backend="device", device="cpu", chunk=16_000)
+assert (dev_index.offsets == mapper.index.offsets).all()
+assert (dev_index.positions == mapper.index.positions).all()
 with tempfile.TemporaryDirectory() as d:
     fq = os.path.join(d, "r.fq")
     with open(fq, "w") as f:

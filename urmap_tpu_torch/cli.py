@@ -8,15 +8,16 @@ output, on CUDA cards.
         -ufi genome.ufi -samout out.sam [-mesh DxI -route a2a|psum]
 
 ``-make_ufi`` writes the index directory urmap_tpu writes, byte for
-byte, and each package's ``-map`` reads the other's. ``-map`` writes the
-SAM bytes urmap_tpu writes; it runs on the card (``main``'s ``device``,
-"cuda" unless a Python caller passes "cpu") and raises without one.
+byte, and each package's ``-map`` reads the other's; it builds on the
+host, or with ``-device_build`` extracts, hashes and sorts the k-mers on
+the card. ``-map`` writes the SAM bytes urmap_tpu writes. ``-map`` and
+``-make_ufi -device_build`` run on ``main``'s ``device``, "cuda" unless
+a Python caller passes "cpu", and raise without a card.
 Launched as N processes (one per card, dist/multihost.py), ``-map``
 maps data-parallel: each rank its own byte range of the FASTQ, rank 0
 merging the shards. ``-mesh DxI`` (or N, or auto) shards the index
 tables over the ranks instead (dist/sharded.py, route ``-route``):
-every rank is fed every batch and writes the rows it owns. Not ported:
-``-device_build`` (A.11: the host build writes the same bytes). The wide
+every rank is fed every batch and writes the rows it owns. The wide
 second pass (``-secondpass P``) runs on the host CPU, as urmap_tpu runs
 it on its host.
 """
@@ -37,6 +38,8 @@ USAGE = """urmap-tpu v{v} — short-read mapper (PyTorch + CUDA port)
 Index build:
   python -m urmap_tpu_torch -make_ufi <genome.fa> -output <genome.ufi>
       [-wordlength K] [-slot_bits B] [-maxpos N] [-veryfast]
+      [-device_build]  (k-mers sorted on the card instead of the C++
+      host build; the same index bytes)
 
 Mapping (on CUDA cards):
   python -m urmap_tpu_torch -map <reads.fq> -ufi <genome.ufi> -samout <out.sam>
@@ -54,8 +57,6 @@ over byte ranges of the input; -mesh DxI shards the index tables over
 the D x I ranks (which must be all of them) by slot range, -route picks
 how the lookups combine (a2a, the default, or psum); "-mesh auto"
 shards over all ranks when the tables pass 0.6 of one card's memory.
-Not ported: -device_build (A.11; the host build writes the same
-index).
 
 Index inspection:
   python -m urmap_tpu_torch -ufistats <genome.ufi>
@@ -98,13 +99,14 @@ def parse_args(argv: list[str]) -> dict:
     return opts
 
 
-def cmd_make_ufi(opts: dict) -> int:
+def cmd_make_ufi(opts: dict, device="cuda") -> int:
+    from urmap_tpu_torch.device import require_device
     from urmap_tpu_torch.index import build_index
     from urmap_tpu_torch.io import SeqDB
 
-    if opts.get("device_build"):
-        raise SystemExit("-device_build is not ported (ROADMAP.md A.11): "
-                         "the host build writes the same index bytes")
+    # host backend by default, as urmap_tpu's: -device_build sorts the
+    # k-mers on ``device`` (the same bytes), checked before any work
+    dev = require_device(device) if opts.get("device_build") else None
     fasta = str(opts["make_ufi"])
     out = opts.get("output")
     if not out:
@@ -127,7 +129,8 @@ def cmd_make_ufi(opts: dict) -> int:
     if "maxpos" in opts:
         kw["max_positions_per_slot"] = int(str(opts["maxpos"]))
     cfg = IndexConfig(**kw)
-    idx = build_index(db, cfg)
+    idx = build_index(db, cfg, backend="host" if dev is None else "device",
+                      device=dev)
     idx.save(str(out))
     # map-ready tables beside the raw CSR, so -map loads and goes
     from urmap_tpu_torch.config import VERYFAST_MAP_OVERRIDES
@@ -632,10 +635,11 @@ def cmd_map(opts: dict, device="cuda") -> int:
 
 
 def main(argv: list[str] | None = None, *, device="cuda") -> int:
-    """Run one command. ``device`` is where -map maps: the CUDA card
-    unless the caller asks for "cpu" (the tests do); without a card
-    -map raises (device.require_device). -make_ufi and -ufistats touch
-    no device."""
+    """Run one command. ``device`` is where -map maps and where
+    -make_ufi -device_build sorts: the CUDA card unless the caller asks
+    for "cpu" (the tests do); without a card they raise
+    (device.require_device). -make_ufi without -device_build and
+    -ufistats touch no device."""
     opts = parse_args(sys.argv[1:] if argv is None else argv)
     if opts.get("help") or not opts:
         print(USAGE.format(v=__version__))
@@ -644,7 +648,7 @@ def main(argv: list[str] | None = None, *, device="cuda") -> int:
         print(f"urmap-tpu v{__version__}")
         return 0
     if "make_ufi" in opts:
-        return cmd_make_ufi(opts)
+        return cmd_make_ufi(opts, device)
     if "ufistats" in opts:
         return cmd_ufistats(opts)
     if "map" in opts:

@@ -15,6 +15,50 @@ from urmap_tpu_torch._bits import i32, srl
 MAX_K = 32
 
 
+# urmap_tpu/hashing.py:extract_words
+def extract_words(codes: torch.Tensor, k: int):
+    """Slide a k-window over a uint8 code tensor → (lo, hi, valid): lo
+    the last min(k, 16) bases (2 bits each, first base most
+    significant), hi the earlier bases, valid true iff all k bases are
+    ACGT (codes < 4; genome N is 4). lo and hi are int32 words holding
+    uint32 bits, one per window start, on the codes' device.
+
+    For k % 4 == 0 it packs 4-base bytes first and combines k/4 byte
+    groups, as extract_words_np does: bit-identical, fewer passes."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+    n = codes.shape[0] - k + 1
+    if n <= 0:
+        raise ValueError(f"sequence shorter than k={k}")
+    lo_bases = min(k, 16)
+    c3 = (codes & 3).to(torch.int32)
+    lo = torch.zeros(n, dtype=torch.int32, device=codes.device)
+    hi = torch.zeros_like(lo)
+    valid = torch.ones(n, dtype=torch.bool, device=codes.device)
+    if k % 4 == 0:
+        m = codes.shape[0] - 3            # 4-base groups start count
+        b4 = ((c3[0:m] << 6) | (c3[1 : m + 1] << 4)
+              | (c3[2 : m + 2] << 2) | c3[3 : m + 3])
+        v4 = (codes[0:m] | codes[1 : m + 1]
+              | codes[2 : m + 2] | codes[3 : m + 3]) < 4
+        ng_hi = (k - lo_bases) // 4
+        for g in range(k // 4):
+            grp = b4[4 * g : 4 * g + n]
+            valid &= v4[4 * g : 4 * g + n]
+            if g < ng_hi:
+                hi = (hi << 8) | grp
+            else:
+                lo = (lo << 8) | grp
+        return lo, hi, valid
+    for i in range(k):
+        valid &= codes[i : i + n] < 4
+        if i < k - lo_bases:
+            hi = (hi << 2) | c3[i : i + n]
+        else:
+            lo = (lo << 2) | c3[i : i + n]
+    return lo, hi, valid
+
+
 def hash_words(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """Avalanche a (hi, lo) word pair to a well-mixed 32-bit word
     (murmur3 fmix32-style, int32 wraparound multiplies)."""

@@ -1,10 +1,17 @@
-"""Host UFI index build: k-mer extract → hash → sort → cap → CSR.
+"""UFI index build: k-mer extract → hash → sort → cap → CSR.
 
-JAX-free copy of the host backend of urmap_tpu/index/build.py
-(``build_index(..., backend="host")``): the multithreaded C++
-extract/partition and radix sort of the io.native codecs, with the
-bit-identical numpy twins when the native library is missing or
-URMAP_NO_NATIVE_BUILD=1. Its tables are bit-identical to urmap_tpu's.
+Both backends of urmap_tpu/index/build.py, with the same tables bit for
+bit:
+
+- ``backend="host"`` (the default here): the multithreaded C++
+  extract/partition and radix sort of the io.native codecs, with the
+  bit-identical numpy twins when the native library is missing or
+  URMAP_NO_NATIVE_BUILD=1;
+- ``backend="device"``: each chunk of word starts is extracted, hashed
+  and sorted by (slot, position) on a torch device (``torch.sort``, as
+  the reference sorts with ``jax.lax.sort`` outside any Pallas kernel),
+  the card unless the caller asks for the CPU; the host merges the
+  sorted runs, or streams them into the spill.
 
 Genomes above ``spill_threshold`` words (GRCh38 scale: ~3.1G words)
 stream through the disk radix spill (``_RadixSpill``): chunks of
@@ -12,10 +19,8 @@ stream through the disk radix spill (``_RadixSpill``): chunks of
 bucket files, then each bucket sorted, capped and laid out in order, so
 peak RAM is one bucket plus the final tables. The output is
 bit-identical to the in-RAM build. ``_RadixSpill`` is copied verbatim
-(tests/unit/test_torch_copies.py holds it by text), so it keeps
-``add(sorted_by_slot=True)``, whose only caller in urmap_tpu is the XLA
-device build, which is not ported. A verbatim copy is simpler to keep
-than a trimmed one.
+(tests/unit/test_torch_copies.py holds it by text); the device backend
+feeds it slot-sorted chunks (``add(sorted_by_slot=True)``).
 """
 
 from __future__ import annotations
@@ -27,13 +32,19 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from urmap_tpu_torch.config import IndexConfig
+from urmap_tpu_torch.device import require_device
+from urmap_tpu_torch.hashing import extract_words, words_to_slots
 from urmap_tpu_torch.io.fasta import SeqDB
 from urmap_tpu_torch.index.store import UfiIndex, evenly_cap_runs
 
-# Words one chunk of the spill build extracts: urmap_tpu's host backend
-# takes max(DEFAULT_CHUNK, 2^27), which is 2^27.
+# Max genome positions sorted in one device call (chunking unit). 64M
+# (slot,pos) pairs = 512 MB of sort traffic — comfortable in 16 GB HBM.
+DEFAULT_CHUNK = 64 * 1024 * 1024
+# Words one chunk of the host spill build extracts: urmap_tpu's host
+# backend takes max(DEFAULT_CHUNK, 2^27), which is 2^27.
 HOST_CHUNK = 1 << 27
 # Above this many words the build streams through the disk radix spill.
 SPILL_THRESHOLD = 256 * 1024 * 1024
@@ -80,6 +91,49 @@ def _sort_u64(L, keys: np.ndarray) -> None:
                             keys.shape[0]) == 0:
             return
     keys.sort(kind="stable")
+
+
+def _chunk_sorted_slots(codes: torch.Tensor, base_pos: int, k: int,
+                        slot_bits: int):
+    """One chunk on the codes' device: uint8 codes of word starts
+    [base_pos, base_pos + n) and the k - 1 bases after them → (slots,
+    positions), numpy uint32 sorted by (slot, position), the words that
+    hold an N dropped (urmap_tpu/index/build.py:_chunk_sorted_slots with
+    its callers' sentinel trim).
+
+    Such words get the sentinel slot 2**slot_bits and sort to the tail.
+    The positions of a chunk rise with the index, so a stable sort on
+    the slot alone gives the (slot, position) order, and its permutation
+    is the position less base_pos. Slots and positions stay int64 on the
+    device (the sentinel is 2^31 at slot_bits 31, positions pass 2^31 at
+    GRCh38 scale); they cross to the host as their low 32 bits."""
+    lo, hi, valid = extract_words(codes, k)
+    slots = words_to_slots(lo, hi, slot_bits).to(torch.int64) & 0xFFFF_FFFF
+    slots = torch.where(valid, slots, 1 << slot_bits)
+    slots, order = torch.sort(slots, stable=True)
+    n = int(valid.sum())
+
+    def low32(x: torch.Tensor) -> np.ndarray:
+        x = torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+        return x.cpu().numpy().view(np.uint32)
+
+    return low32(slots[:n]), low32(order[:n] + base_pos)
+
+
+# urmap_tpu/index/build.py:_merge_sorted_runs
+def _merge_sorted_runs(runs: list[tuple[np.ndarray, np.ndarray]]):
+    """Merge per-chunk (slot, pos) runs, each sorted by (slot, pos).
+
+    Chunks are produced in ascending-position order, so one STABLE sort
+    on slots alone re-establishes (slot, pos) order — equal slots keep
+    (chunk, within-chunk) order, which is ascending pos. Half the cost
+    of a two-key lexsort on multi-G-position genomes."""
+    if len(runs) == 1:
+        return runs[0]
+    slots = np.concatenate([r[0] for r in runs])
+    pos = np.concatenate([r[1] for r in runs])
+    order = np.argsort(slots, kind="stable")
+    return slots[order], pos[order]
 
 
 # urmap_tpu/index/build.py:_cap_slots
@@ -315,18 +369,29 @@ def _host_chunk_slots(codes: np.ndarray, start: int, stop: int, k: int,
     return slots[valid], pos
 
 
-# urmap_tpu/index/build.py:build_index (backend="host")
+# urmap_tpu/index/build.py:build_index
 def build_index(seqdb: SeqDB, cfg: IndexConfig | None = None, *,
-                chunk: int = HOST_CHUNK,
+                backend: str = "host", device=None,
+                chunk: int | None = None,
                 spill_threshold: int = SPILL_THRESHOLD,
                 spill_dir: str | None = None) -> UfiIndex:
-    """Build the UFI index for a SeqDB on the host. ``cfg=None``
-    auto-sizes slot_bits from the genome length. Genomes with more than
-    ``spill_threshold`` words stream through a disk radix spill under
-    ``spill_dir`` (tempfile's default when None), in chunks of
-    ``chunk`` words: bounded RAM, the same output bit for bit, whatever
-    the chunk. The spill directory is removed on success and on any
-    exception."""
+    """Build the UFI index for a SeqDB. ``cfg=None`` auto-sizes
+    slot_bits from the genome length. ``backend``: "host" (C++ or numpy)
+    or "device" (extract, hash and sort on ``device``: "cuda" when None,
+    which raises without a card). Each processes ``chunk`` words at a
+    time (``DEFAULT_CHUNK`` on the device, ``HOST_CHUNK`` on the host;
+    the host's in-RAM build takes the genome whole). Genomes with more
+    than ``spill_threshold`` words stream through a disk radix spill
+    under ``spill_dir`` (tempfile's default when None). The output is
+    the same bit for bit whatever the backend, the chunk or the spill;
+    the spill directory is removed on success and on any exception."""
+    if backend not in ("host", "device"):
+        raise ValueError(f"backend must be 'host' or 'device', not "
+                         f"{backend!r}")
+    dev = (require_device("cuda" if device is None else device)
+           if backend == "device" else None)
+    if chunk is None:
+        chunk = HOST_CHUNK if dev is None else DEFAULT_CHUNK
     if cfg is None:
         cfg = IndexConfig(
             slot_bits=IndexConfig.auto_slot_bits(seqdb.total_len))
@@ -334,14 +399,25 @@ def build_index(seqdb: SeqDB, cfg: IndexConfig | None = None, *,
     n_words = codes.shape[0] - cfg.k + 1
     if n_words <= 0:
         raise ValueError("genome shorter than k")
+
+    def device_run(start: int):
+        # word starts [start, stop) read codes[start : stop + k - 1]
+        stop = min(start + chunk, n_words)
+        sub = np.ascontiguousarray(codes[start : stop + cfg.k - 1])
+        return _chunk_sorted_slots(torch.from_numpy(sub).to(dev), start,
+                                   cfg.k, cfg.slot_bits)
+
     if n_words > spill_threshold:
         spill = _RadixSpill(cfg.slot_bits, spill_dir)
-        L = _native_lib()
+        L = _native_lib() if dev is None else None
         try:
             start = 0
             while start < n_words:
                 stop = min(start + chunk, n_words)
-                if L is not None:
+                if dev is not None:
+                    sl, po = device_run(start)
+                    spill.add(sl, po, sorted_by_slot=True)
+                elif L is not None:
                     keys, counts = _native_extract_partition(
                         L, codes[start : stop + cfg.k - 1], start,
                         cfg.k, cfg.slot_bits, spill.radix_bits)
@@ -362,7 +438,11 @@ def build_index(seqdb: SeqDB, cfg: IndexConfig | None = None, *,
             raise
         return UfiIndex(config=cfg, offsets=offsets, positions=positions,
                         seqdb=seqdb)
-    slots, pos = _host_sorted_slots(codes, cfg.k, cfg.slot_bits)
+    if dev is None:
+        slots, pos = _host_sorted_slots(codes, cfg.k, cfg.slot_bits)
+    else:
+        slots, pos = _merge_sorted_runs(
+            [device_run(start) for start in range(0, n_words, chunk)])
     slots, pos, offsets = _cap_slots(slots, pos, cfg.num_slots,
                                      cfg.max_positions_per_slot)
     return UfiIndex(config=cfg, offsets=offsets,
