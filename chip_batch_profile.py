@@ -61,7 +61,7 @@ def one_tree(tree: str, seed: int, reps: int) -> None:
     fa = os.path.join(work, "genome.fa")
     cs.write_fasta(fa, cs.make_genome(rng, cs.CHR21_LEN))
     db = SeqDB.from_fasta(fa)
-    index = build_index(db)
+    index = build_index(db, backend="host")
     p = MapConfig().positions_per_seed
     prepared = prepare_tables(index, p)
     os.environ["URMAP_ROW128_BYTES"] = "1"

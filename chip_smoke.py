@@ -144,6 +144,29 @@ build; one chunk on the card equal to the same on CPU tensors, numbered
 past 2^31, at slot_bits 30 and 31; `-make_ufi -device_build` equal to
 phase 10's directory byte for byte; one chunk of each size profiled by
 stage (extract + hash, sort, trim, device → host copy).
+Phase 16, repeats (after phase 15): a genome of chr21's length with 25%
+repeat families (tools/accuracy.py's plant_repeat_families: SINE- and
+LINE-like families, exact segmental duplications, tandem runs) from its
+own stream, -make_ufi through cli.main; 65,536 simulate() reads
+(tools/accuracy.py's, 150 bp, 1% SNPs, 10% with an indel) through the
+default Mapper: the ROC by MAPQ (0, 1, 10, 20, 30, 40, 42), the weak,
+suspect and clip-rescued counts (the gates fire, their caps hold), card
+= CPU on the first 2,048 reads, one batch profiled; 4,096 FR pairs
+through PairedMapper (card = CPU on 512, weak-capped mates counted);
+-make_ufi -veryfast (auto + 2 slot_bits) over the genome's first
+quarter (a cut: 27 bits, not the whole genome's 29) with a Mapper under
+VERYFAST_MAP_OVERRIDES (B4 at 64 candidates a read, B5's row entry at
+8) over 65,536 reads of the quarter (card = CPU on 2,048; its ROC beside
+the quarter's default index's) and -map on that index equal to it;
+second_pass_p 32 with the suspects it recovers.
+The SAM writer raises on reads in tandem runs whose banded DP score the
+host DP at POS does not reproduce, as urmap_tpu's does (ROADMAP C.3):
+the phase counts them, holds card = CPU on which they are, writes them
+unmapped where it compares SAM bytes and leaves them out of -map's
+input.
+Phase 3 also holds B4 at 64 candidates a read and B5's row entry at
+positions_per_seed 8 over the aligned layout's 16-word rows, the
+-veryfast path's shapes.
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and
 the final {"ok": true, ...} line. Any failed check exits non-zero.
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -167,6 +190,7 @@ CHR21_LEN = 46_709_983          # GRCh38 chr21 (BASELINE.json config 3)
 READ_LEN = 150
 B = 16384                        # reads per batch (pairs: B // 2)
 K, Q, P, V, HW, L_MAX = 24, 8, 16, 8, 16, 160
+VERYFAST_P = 8                   # VERYFAST_MAP_OVERRIDES' positions_per_seed
 TB_C = 2048                      # traceback lanes per batch (tb_cols)
 RESCUE_W = 1200                  # MapConfig.rescue_window
 N_CPU = 4096                     # reads mapped again on the CPU
@@ -583,11 +607,12 @@ def shape_cases(dev, rng, n_reads: int, sc) -> dict:
                 lambda a=args, hw=hw: tb_dp.tb_from_windows(*a, hw=hw, sc=sc),
                 lambda a=args, hw=hw: tbmod.tb_from_windows(*a, hw=hw, sc=sc),
                 args, TB_C * L * cells * 15)
-    # B4 at Q x P = 256 and 2,048 (the shared-memory body): the bitonic
+    # B4 at Q x P = 64 (the -veryfast path's 8 x VERYFAST_P, the register
+    # body), 256 and 2,048 (the shared-memory body): the bitonic
     # network's s (s + 1) / 2 stages of MP / 2 compare-exchanges (2
     # each), a head test per value, V maxima over MP keys in three-input
     # maxima
-    for m in (256, 2048):
+    for m in (Q * VERYFAST_P, 256, 2048):
         c = put(vote_inputs(rng, n_reads, m))
         lg = m.bit_length() - 1
         cases[f"vote_m{m}"] = (
@@ -912,6 +937,11 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     tier_starts = put(starts_of(n_reads * Q))
     for t in (4, 8):
         row_case(f"row128_fetch_tier{t}", table.view(-1), tier_starts, t, t)
+    # the row entry as the -veryfast path runs it (positions_per_seed
+    # VERYFAST_P over the aligned layout's rows of align_row_words(8) = 16
+    # words): one start a seed, 2B x Q
+    row_case(f"row128_fetch_p{VERYFAST_P}", table.view(-1), tier_starts,
+             VERYFAST_P, seedmod.align_row_words(VERYFAST_P))
     M2 = (1 << 31) + (1 << 24)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(rng.integers(1 << 62)))
@@ -1055,10 +1085,38 @@ def write_fastq(path: str, codes: np.ndarray) -> None:
                              for i, row in enumerate(chars[s : s + 65536])))
 
 
-def map_fastq(mapper, db, fq: str, batch: int, sam_path: str | None):
+def c3_prone(genome, raw_codes, res, sc) -> np.ndarray:
+    """bool per row: a mapped, gapped, unclipped winner whose score the
+    host DP at its POS does not reproduce (map.cigar's
+    traceback_batch_native finds another). These are reads in tandem
+    runs whose banded main-DP path is not the best one at that POS. The
+    SAM writer (map.cigar.cigars_nm_blob, as urmap_tpu's) raises
+    "native traceback score mismatch" on any of them that reaches its
+    host DP, and in the runs so far each did: the traceback kernel,
+    re-centred at POS, scored it differently, so its records were stale
+    (ROADMAP C.3)."""
+    from urmap_tpu_torch.map.cigar import (strand_codes_subset,
+                                           traceback_batch_native)
+
+    out = np.zeros(len(res.mapped), bool)
+    rows = np.nonzero(res.mapped & res.gapped & ~res.clipped)[0]
+    if rows.size:
+        lens = res.lengths[rows]
+        sub = strand_codes_subset(raw_codes[rows], res.strand[rows], lens)
+        nat = traceback_batch_native(genome, res.pos[rows], sub, lens, sc,
+                                     raw=True)
+        check(nat is not None, "the native traceback is unavailable")
+        out[rows[nat[3] != res.score[rows]]] = True
+    return out
+
+
+def map_fastq(mapper, db, fq: str, batch: int, sam_path: str | None,
+              c3: list | None = None):
     """FastqReader → Mapper → run_stream → cigars_nm_blob (in clip mode
     under end_clip, as the CLI runs it) → format_single_end. Returns
-    (list of MapResult, SAM record bytes)."""
+    (list of MapResult, SAM record bytes). With a list ``c3``, each
+    batch's c3_prone rows are appended to it and written unmapped
+    (ROADMAP C.3: the SAM writer raises on them)."""
     from urmap_tpu_torch.io.fastq import FastqReader, PrefetchIterator
     from urmap_tpu_torch.io import sam_native
     from urmap_tpu_torch.utils.stream import run_stream
@@ -1081,15 +1139,22 @@ def map_fastq(mapper, db, fq: str, batch: int, sam_path: str | None):
 
     def fmt(item, res):
         b = item[0]
+        out = res
+        if c3 is not None:
+            prone = c3_prone(db.codes, b.codes, res, mapper.sc)
+            out = dataclasses.replace(res, mapped=res.mapped & ~prone)
         blob, off, nm, _span = cigars_nm_blob(
-            db.codes, b.codes, res, mapper.sc, raw_lengths=b.seq_len,
-            clip_open=clip_of(mapper), clip_rows=res.clipped)
-        return res, sam_native.format_single_end(b, res, (blob, off), nm,
-                                                 db)
+            db.codes, b.codes, out, mapper.sc, raw_lengths=b.seq_len,
+            clip_open=clip_of(mapper), clip_rows=out.clipped)
+        return res, sam_native.format_single_end(b, out, (blob, off), nm,
+                                                 db), \
+            (None if c3 is None else prone)
 
     def write(out):
         results.append(out[0])
         chunks.append(out[1])
+        if c3 is not None:
+            c3.append(out[2])
 
     run_stream(items, start, sync, fmt, write, inflight=1, workers=2)
     data = b"".join(chunks)
@@ -1222,7 +1287,7 @@ def make_world(rng, work: str, n_reads: int, n_half: int, n_pairs: int,
     fa = os.path.join(work, "genome.fa")
     write_fasta(fa, make_genome(rng, genome_len))
     db = SeqDB.from_fasta(fa)
-    index = build_index(db)
+    index = build_index(db, backend="host")
     p = MapConfig().positions_per_seed
     prepared = prepare_tables(index, p)
     check(prepared[1]["layout"] in ("classic", "aligned"),
@@ -1362,32 +1427,55 @@ def run_single_end(dev, w: dict, mapper, phase: str, fq: str, n: int,
     return {"results": results, "sam": sam, "res": res, "counts": counts}
 
 
-def profile_call(fn, table_path: str) -> dict:
+def profile_call(fn, table_path: str, tries: int = 3) -> dict:
     """torch.profiler over one call of ``fn`` (ended by a synchronise):
     wall and device-busy ms, the idle share (the profiler's overhead
     inflates the wall), the top device kernels, the port's own kernels
     (device ms in all and launches: a launch of a few microseconds is
     invisible to phase 3's event timing, which then shows the enqueue)
-    and the host ops with the most self time. The full table goes to
-    ``table_path``."""
+    and the host ops with the most self time; ``complete``: the trace
+    holds a device kernel for each host launch. The full table goes to
+    ``table_path``. ``fn`` runs twice a try (a warm-up, then the
+    recorded call), in up to ``tries`` tries: ranks that must call
+    their collectives alike take one."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    # a trace now and then comes back without one device event (seen
-    # on the second profile of a process): take it again, once
-    for _ in range(2):
+    # a trace now and then comes back with device records dropped (seen
+    # in a process that has profiled before): the schedule runs one call
+    # as warm-up before the one it records (chunk_stage_ms does the
+    # same), and a trace is taken again, up to three times, until it
+    # holds a device kernel for each host launch; the schedule's own
+    # ProfilerStep span is left out of both counts
+    for _ in range(tries):
+        got = {}
+
+        def ready(p):
+            got["ka"] = p.key_averages()
+
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        ka = prof.key_averages()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=ready) as prof:
+            for _step in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        ka = [e for e in got["ka"] if not e.key.startswith("ProfilerStep")]
         # device-side events only (kernels, copies): the CPU-side op
         # rows carry the same device time again
         on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
-        if on_dev:
+        host_launches = sum(e.count for e in ka
+                            if e.device_type == DeviceType.CPU
+                            and e.key.startswith(("cudaLaunchKernel",
+                                                  "cuLaunchKernel")))
+        device_kernels = sum(e.count for e in on_dev if not e.key.startswith(
+            ("Memcpy", "Memset")))
+        if on_dev and device_kernels >= host_launches:
             break
     on_host = [e for e in ka if e.device_type == DeviceType.CPU]
 
@@ -1400,8 +1488,11 @@ def profile_call(fn, table_path: str) -> dict:
 
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     with open(table_path, "w") as f:
-        f.write(ka.table(sort_by="self_device_time_total", row_limit=60))
+        f.write(got["ka"].table(sort_by="self_device_time_total",
+                                row_limit=60))
     return {
+        "complete": bool(on_dev) and device_kernels >= host_launches,
+        "host_launches": host_launches,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
         "device_launches": sum(e.count for e in on_dev),
@@ -1550,9 +1641,11 @@ def phase_row128(dev, w: dict, mapper128, aligned: dict, batch: int,
     return run
 
 
-def map_pairs_fastq(pm, db, fq1: str, fq2: str):
+def map_pairs_fastq(pm, db, fq1: str, fq2: str, c3: list | None = None):
     """FastqReader (paired) → PairedMapper → run_stream → cigars_nm_blob
-    per mate → format_paired. Returns (list of PairResult, SAM bytes)."""
+    per mate → format_paired. Returns (list of PairResult, SAM bytes).
+    With a list ``c3``, as map_fastq: each batch's (mate 1, mate 2)
+    c3_prone rows, written unmapped."""
     from urmap_tpu_torch.io.fastq import FastqReader, PrefetchIterator
     from urmap_tpu_torch.utils.stream import run_stream
 
@@ -1572,11 +1665,21 @@ def map_pairs_fastq(pm, db, fq1: str, fq2: str):
         return pm.finish_batch(handle, b1.lengths, b2.lengths)
 
     def fmt(item, res):
-        return res, format_pairs(pm, db, *item[0], res)
+        if c3 is None:
+            return res, format_pairs(pm, db, *item[0], res), None
+        prone = [c3_prone(db.codes, b.codes, m, pm.sc)
+                 for b, m in zip(item[0], (res.m1, res.m2))]
+        out = dataclasses.replace(
+            res, m1=dataclasses.replace(res.m1,
+                                        mapped=res.m1.mapped & ~prone[0]),
+            m2=dataclasses.replace(res.m2, mapped=res.m2.mapped & ~prone[1]))
+        return res, format_pairs(pm, db, *item[0], out), prone
 
     def write(out):
         results.append(out[0])
         chunks.append(out[1])
+        if c3 is not None:
+            c3.append(out[2])
 
     run_stream(items, start, sync, fmt, write, inflight=1, workers=2)
     return results, b"".join(chunks)
@@ -2545,7 +2648,7 @@ def phase_spill(w: dict, work: str) -> None:
     os.makedirs(spill_dir)
     cfg = w["index"].config
     t0 = time.perf_counter()
-    inram = bmod.build_index(w["db"], cfg)
+    inram = bmod.build_index(w["db"], cfg, backend="host")
     inram_s = time.perf_counter() - t0
     on_disk = []
     real = bmod._RadixSpill.finalize
@@ -2574,7 +2677,7 @@ def phase_spill(w: dict, work: str) -> None:
             t1 = time.perf_counter()
             spilled[name] = bmod.build_index(
                 w["db"], cfg, chunk=chunk, spill_threshold=1 << 20,
-                spill_dir=spill_dir)
+                spill_dir=spill_dir, backend="host")
             seconds[name] = time.perf_counter() - t1
             same[name] = (
                 np.array_equal(spilled[name].offsets, w["index"].offsets)
@@ -2678,7 +2781,7 @@ def phase_scale(dev, mcfg, sc, smi: str, work: str, seed: int,
     t1 = time.perf_counter()
     check(db.codes.shape[0] - K + 1 > bmod.SPILL_THRESHOLD,
           "the scale genome does not pass the spill threshold")
-    index = build_index(db, IndexConfig(slot_bits=27))
+    index = build_index(db, IndexConfig(slot_bits=27), backend="host")
     t2 = time.perf_counter()
     prepared = prepare_tables(index, P)
     t3 = time.perf_counter()
@@ -2906,7 +3009,8 @@ def mesh_rank_main(mdir: str) -> int:
             prof = profile_call(
                 lambda: m.finish_batch(m.start_batch(b.codes, b.lengths),
                                        b.lengths),
-                os.path.join(mdir, f"profile_{name}_rank{rank}.txt"))
+                os.path.join(mdir, f"profile_{name}_rank{rank}.txt"),
+                tries=1)
             rec["profile_one_batch"] = {
                 k: prof[k] for k in ("profiled_wall_ms", "device_busy_ms",
                                      "device_idle_share",
@@ -3304,7 +3408,8 @@ def phase_device_build(dev, w: dict, smi: str, work: str) -> dict:
     walls = {"host": [], "device": []}
     equal = {}
     for name in ("host", "device", "device", "host"):
-        kw = {"backend": "device", "device": dev} if name == "device" else {}
+        kw = ({"backend": "device", "device": dev} if name == "device"
+              else {"backend": "host"})
         idx, sec = timed(**kw)
         walls[name].append(sec)
         equal.setdefault(f"one_chunk_{name}", True)
@@ -3417,6 +3522,456 @@ def phase_device_build(dev, w: dict, smi: str, work: str) -> dict:
     return stage
 
 
+# ---- phase 16: repeat-laden genomes --------------------------------------
+
+N_REP, N_REP_CPU = 65_536, 2048          # single-end reads; on the CPU too
+N_REP_PAIRS, N_REP_CPU_PAIRS = 4096, 512
+REP_FRAC = 0.25                           # of the genome in repeat families
+ROC_MAPQ = (0, 1, 10, 20, 30, 40, 42)     # tools/accuracy.py's thresholds
+ROC_SLOP = 5                              # tools/accuracy.py's --slop
+
+
+def roc_of(mapped, mapq, correct, n: int) -> list:
+    """Precision and recall by MAPQ threshold as tools/accuracy.py
+    counts them, unrounded: a call at threshold q is a mapped read with
+    MAPQ >= q; precision is the correct share of the calls, recall the
+    correct calls over ``n`` reads."""
+    out = []
+    for q in ROC_MAPQ:
+        called = mapped & (mapq >= q)
+        nc, ok = int(called.sum()), int((called & correct).sum())
+        out.append({"mapq": q, "called": nc, "correct": ok,
+                    "precision": ok / max(nc, 1), "recall": ok / n})
+    return out
+
+
+class GateSpy:
+    """``with GateSpy() as spy:`` keeps each batch's weak flags and
+    saturated-seed counts from map.pipeline.candidates_batch_device, the
+    inputs of the weak and suspect MAPQ gates, which a MapResult does
+    not carry (single-end batches through map_batch_device, pair batches
+    through map.pair.map_pairs_device: rows [0, P) mate 1, [P, 2P) mate
+    2). It copies two small tensors a batch and launches no kernel."""
+
+    def __init__(self):
+        self.batches = []
+
+    def __enter__(self):
+        from urmap_tpu_torch.map import pair, pipeline
+
+        real = pipeline.candidates_batch_device
+
+        def spy(*a, **kw):
+            c = real(*a, **kw)
+            self.batches.append((c["weak"].clone(), c["nsat"].clone()))
+            return c
+
+        self._undo = [(m, real) for m in (pipeline, pair)]
+        for m, _ in self._undo:
+            m.candidates_batch_device = spy
+        return self
+
+    def __exit__(self, *exc):
+        for m, real in self._undo:
+            m.candidates_batch_device = real
+
+    def reads(self, sizes) -> tuple:
+        """(weak, nsat) per read of single-end batches of ``sizes``
+        reads."""
+        check(len(self.batches) == len(sizes), "a batch went unseen")
+        weak = [w.cpu().numpy()[:k] for (w, _), k in zip(self.batches, sizes)]
+        nsat = [n.cpu().numpy()[:k] for (_, n), k in zip(self.batches, sizes)]
+        return np.concatenate(weak), np.concatenate(nsat)
+
+    def mates(self, sizes, rows: int) -> tuple:
+        """The weak flags of mate 1 and of mate 2 of pair batches of
+        ``sizes`` pairs, ``rows`` rows a mate."""
+        check(len(self.batches) == len(sizes), "a batch went unseen")
+        w = [bt[0].cpu().numpy() for bt in self.batches]
+        return (np.concatenate([x[:k] for x, k in zip(w, sizes)]),
+                np.concatenate([x[rows : rows + k] for x, k in zip(w, sizes)]))
+
+
+def gate_counts(res, weak, nsat, mcfg, sc) -> dict:
+    """The repeat machinery's counts over one run's calls: weak-fallback
+    winners, winners on saturated evidence, those the suspect gate
+    capped, the suspects (exported to the second pass) and the
+    clip-rescued; each gate's cap is checked on its rows."""
+    from urmap_tpu_torch.config import resolve_suspect_deficits
+
+    gate, _remap = resolve_suspect_deficits(mcfg, sc)
+    weak = weak & res.mapped
+    sat = res.mapped & (nsat > 0) & ~res.clipped
+    capped = sat & (res.lengths * sc.match - res.score > gate)
+    check(bool((res.mapq[weak] <= mcfg.weak_mapq_cap).all()),
+          "a weak-fallback winner above weak_mapq_cap")
+    check(bool((res.mapq[capped] <= mcfg.suspect_mapq_cap).all()),
+          "a gated winner above suspect_mapq_cap")
+    return {"weak": int(weak.sum()), "saturated": int(sat.sum()),
+            "suspect_capped": int(capped.sum()),
+            "suspect": int(res.suspect.sum()),
+            "clip_rescued": int((res.clipped & res.mapped).sum()),
+            "mapq0": int((res.mapped & (res.mapq == 0)).sum())}
+
+
+def card_equals_cpu(card, cpu, db, fq: str, what: str) -> dict:
+    """The reads of ``fq`` through a card and a CPU Mapper: differing
+    MapResult fields and traceback keys, whether the c3_prone rows and
+    the SAM bytes (those rows written unmapped) are equal; each must
+    be."""
+    t0 = time.perf_counter()
+    c3a, c3b = [], []
+    a, sam_a = map_fastq(card, db, fq, card.mcfg.batch_size, None, c3a)
+    b, sam_b = map_fastq(cpu, db, fq, cpu.mcfg.batch_size, None, c3b)
+    diff = differing(concat_results(a), concat_results(b))
+    tb_diff = sorted({k for x, y in zip(a, b) for k in tb_differing(x.tb,
+                                                                    y.tb)})
+    same_c3 = np.array_equal(np.concatenate(c3a), np.concatenate(c3b))
+    out = {"reads": int(sum(len(r.mapped) for r in a)),
+           "fields_differing": diff, "tb_keys_differing": tb_diff,
+           "c3_prone": int(np.concatenate(c3a).sum()),
+           "c3_identical": same_c3, "sam_identical": sam_a == sam_b,
+           "seconds": time.perf_counter() - t0, "sam": sam_a}
+    check(not diff, f"16 {what}: card and CPU differ in {diff}")
+    check(not tb_diff, f"16 {what}: card and CPU tb records differ in "
+          f"{tb_diff}")
+    check(same_c3, f"16 {what}: card and CPU c3_prone rows differ")
+    check(sam_a == sam_b, f"16 {what}: card and CPU SAM bytes differ")
+    return out
+
+
+def head_lines(sam: bytes, n: int) -> bytes:
+    return b"\n".join(sam.split(b"\n")[:n]) + b"\n"
+
+
+def phase_repeats(dev, smi: str, work: str, seed: int) -> dict:
+    """Phase 16: a repeat-laden genome of chr21's length (its own stream,
+    tools/accuracy.py's plant_repeat_families at REP_FRAC: SINE- and
+    LINE-like families, exact segmental duplications, tandem runs), where
+    the weak and suspect MAPQ gates decide calls. -make_ufi (auto
+    slot_bits) through cli.main; N_REP simulate() reads (tools/
+    accuracy.py's: 150 bp, 1% SNPs, 10% with an indel) through the
+    default Mapper: the ROC by MAPQ, the gate counts, card = CPU on the
+    first N_REP_CPU reads, one batch profiled; N_REP_PAIRS FR pairs
+    through PairedMapper (card = CPU on N_REP_CPU_PAIRS); on the
+    genome's first quarter, -make_ufi and -make_ufi -veryfast (auto + 2
+    slot_bits), a Mapper with VERYFAST_MAP_OVERRIDES over N_REP reads of
+    it beside the default's (card = CPU on N_REP_CPU reads), and -map on
+    the -veryfast index, whose SAM equals the Mapper's; second_pass_p 32 (what
+    -secondpass 32 sets) over the reads, with the suspects it recovers.
+    The SAM writer raises on c3_prone rows, in urmap_tpu as here
+    (ROADMAP C.3): they are counted, must be the same rows on the card
+    and the CPU, and are written unmapped wherever SAM bytes are
+    compared; -map runs on the reads without them. Returns the counts of
+    the paths repeats, repeats_paired and veryfast."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from urmap_tpu_torch import cli
+    from urmap_tpu_torch.config import (VERYFAST_MAP_OVERRIDES, IndexConfig,
+                                        MapConfig)
+    from urmap_tpu_torch.index import UfiIndex
+    from urmap_tpu_torch.io.fastq import FastqReader
+    from urmap_tpu_torch.map import Mapper
+    from urmap_tpu_torch.map.pair import PairedMapper
+    from urmap_tpu_torch.tools.accuracy import (plant_repeat_families,
+                                                simulate)
+
+    check(VERYFAST_MAP_OVERRIDES["positions_per_seed"] == VERYFAST_P,
+          "VERYFAST_P is not VERYFAST_MAP_OVERRIDES' positions_per_seed")
+    t_phase = time.perf_counter()
+    rdir = os.path.join(work, "repeats")
+    shutil.rmtree(rdir, ignore_errors=True)
+    os.makedirs(rdir)
+    setup = {}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 16])
+    seq = rng.integers(0, 4, size=CHR21_LEN, dtype=np.uint8)
+    plant_repeat_families(rng, seq, REP_FRAC)
+    fa = os.path.join(rdir, "genome.fa")
+    qfa = os.path.join(rdir, "quarter.fa")
+    write_fasta(fa, seq)
+    write_fasta(qfa, seq[: CHR21_LEN // 4])
+    del seq
+    setup["genome_s"] = time.perf_counter() - t0
+
+    def make_ufi(src: str, out: str, *extra) -> float:
+        t = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            check(cli.main(["-make_ufi", src, "-output", out, *extra]) == 0,
+                  f"16: -make_ufi {extra}")
+        return time.perf_counter() - t
+
+    ufi = os.path.join(rdir, "g.ufi")
+    setup["make_ufi_s"] = make_ufi(fa, ufi)
+    index = UfiIndex.load(ufi)
+    db = index.seqdb
+    t0 = time.perf_counter()
+    codes, tpos, tstrand = simulate(np.random.default_rng([seed, 16, 1]), db,
+                                    N_REP, READ_LEN, 0.01, 0.10)
+    fq = os.path.join(rdir, "reads.fq")
+    fq_cpu = os.path.join(rdir, "reads_cpu.fq")
+    write_fastq(fq, codes)
+    write_fastq(fq_cpu, codes[:N_REP_CPU])
+    setup["reads_s"] = time.perf_counter() - t0
+    lens = np.full(B, READ_LEN, np.int32)
+    paths = {}
+
+    def correct_of(res, tp=tpos, ts=tstrand):
+        return res.mapped & (np.abs(res.pos - tp) <= ROC_SLOP) \
+            & (res.strand == ts)
+
+    def layout_of(m):
+        return ("row128" if m.row128 else
+                "aligned" if m.csr_aligned else "classic")
+
+    # 1. single-end through the default Mapper
+    mcfg = MapConfig(batch_size=B)
+    mapper = Mapper(index, mcfg, device=dev)
+    mapper.map_codes(codes[:B], lens)                     # warm
+    c3 = []
+    reset_counters()
+    t0 = time.perf_counter()
+    with GateSpy() as spy:
+        results, sam = map_fastq(mapper, db, fq, B, None, c3)
+    torch.cuda.synchronize(dev)
+    map_s = time.perf_counter() - t0
+    paths["repeats"] = counts = read_counters()
+    res = concat_results(results)
+    check(len(res.mapped) == N_REP, "16: result count")
+    weak, nsat = spy.reads([len(r.mapped) for r in results])
+    gates = gate_counts(res, weak, nsat, mcfg, mapper.sc)
+    c3 = np.concatenate(c3)
+    correct = correct_of(res)
+    roc = roc_of(res.mapped, res.mapq, correct, N_REP)
+    nb = len(results)
+    emit({"phase": "repeats", "gpu": smi, "genome_bases": int(db.total_len),
+          "repeat_frac": REP_FRAC, "slot_bits": index.config.slot_bits,
+          "positions": index.num_positions, "layout": layout_of(mapper),
+          "setup_s": setup, "reads": N_REP, "batch": B, "batches": nb,
+          "map_s": map_s, "reads_per_s": N_REP / map_s,
+          "mapped_frac": float(res.mapped.mean()),
+          "correct_frac": float(correct.mean()),
+          "correct_rule": f"mapped, |POS - planted| <= {ROC_SLOP}, strand "
+                          "as planted (tools/accuracy.py)",
+          "roc": roc, "gates": gates, "c3_prone": int(c3.sum()),
+          "c3_prone_correct": int((c3 & correct).sum()),
+          "traceback": tb_coverage(results), "counters": counts})
+    check_counters(counts, "16 repeats")
+    check(counts["tb_dops"]["launches"] == nb,
+          f"16: tb_dops launches {counts['tb_dops']['launches']} != {nb}")
+    check(counts["vote"].get("widths") == {Q * P: nb},
+          f"16: vote widths {counts['vote'].get('widths')}")
+    check(gates["weak"] > 0 and gates["suspect"] > 0,
+          f"16: the gates never fired: {gates}")
+
+    # the first reads alone, on the card and on a CPU Mapper
+    cpu_mapper = Mapper(index, mcfg, device="cpu")
+    head = card_equals_cpu(mapper, cpu_mapper, db, fq_cpu, "single-end")
+    same_head = head.pop("sam") == head_lines(sam, N_REP_CPU)
+    emit({"phase": "repeats_cpu", **head, "equals_full_run": same_head})
+    check(same_head, "16: the first reads map differently alone")
+
+    # one batch under torch.profiler: launches and device busy time
+    b = next(iter(FastqReader(fq, batch_size=B)))
+    pk = mapper.prepack(b.codes, b.lengths)
+    prof = profile_call(lambda: mapper.finish_batch(
+        mapper.start_batch(b.codes, b.lengths, prepacked=pk), b.lengths),
+        os.path.join(work, "profile_repeats.txt"))
+    emit({"phase": "repeats_profile", "gpu": smi, "reads": len(b),
+          **{k: prof[k] for k in ("complete", "host_launches",
+                                  "profiled_wall_ms", "device_busy_ms",
+                                  "device_idle_share", "device_launches",
+                                  "port_kernels_device_ms")}})
+
+    # 2. FR pairs through PairedMapper
+    c1, c2, pt = plant_pairs(np.random.default_rng([seed, 16, 2]), db,
+                             N_REP_PAIRS)
+    f1, f2 = os.path.join(rdir, "r1.fq"), os.path.join(rdir, "r2.fq")
+    f1c, f2c = os.path.join(rdir, "r1_cpu.fq"), os.path.join(rdir, "r2_cpu.fq")
+    for path, sub in ((f1, c1), (f2, c2), (f1c, c1[:N_REP_CPU_PAIRS]),
+                      (f2c, c2[:N_REP_CPU_PAIRS])):
+        write_fastq(path, sub)
+    pm = PairedMapper(mapper)
+    pl = np.full(N_REP_CPU_PAIRS, READ_LEN, np.int32)
+    pm.map_pair_codes(c1[: len(pl)], pl, c2[: len(pl)], pl)   # warm
+    pc3 = []
+    reset_counters()
+    t0 = time.perf_counter()
+    with GateSpy() as spy:
+        presults, _psam = map_pairs_fastq(pm, db, f1, f2, pc3)
+    torch.cuda.synchronize(dev)
+    pmap_s = time.perf_counter() - t0
+    paths["repeats_paired"] = pcounts = read_counters()
+    m1, m2, proper = concat_pairs(presults)
+    w1, w2 = spy.mates([len(r.proper) for r in presults], pm.pair_batch)
+    planted = pt["kind"] != 3
+    ok1 = m1.mapped & (m1.pos == pt["pos1"]) & (m1.strand == pt["strand1"])
+    ok2 = m2.mapped & (m2.pos == pt["pos2"]) & (m2.strand == pt["strand2"])
+    weak_mates = (w1 & m1.mapped, w2 & m2.mapped)
+    # a weak mate of a proper pair whose other mate is not weak keeps
+    # rescue-grade confidence (map.pair's RESCUE_MAPQ_CAP); the others
+    # take weak_mapq_cap
+    anchored = (weak_mates[0] & proper & ~w2, weak_mates[1] & proper & ~w1)
+    nbp = len(presults)
+    emit({"phase": "repeats_paired", "gpu": smi, "pairs": N_REP_PAIRS,
+          "pair_batch": pm.pair_batch, "batches": nbp, "map_s": pmap_s,
+          "pairs_per_s": N_REP_PAIRS / pmap_s,
+          "correct_mate_frac": float(np.concatenate(
+              [ok1[planted], ok2[planted]]).mean()),
+          "proper_frac": float(proper[planted].mean()),
+          "weak_capped_mates": int(sum(x.sum() for x in weak_mates)),
+          "weak_mates_in_anchored_pairs": int(sum(x.sum()
+                                                  for x in anchored)),
+          "suspect_mates": int(m1.suspect.sum() + m2.suspect.sum()),
+          "c3_prone_mates": int(sum(x[0].sum() + x[1].sum() for x in pc3)),
+          "roc_mates": roc_of(np.concatenate([m1.mapped, m2.mapped]),
+                              np.concatenate([m1.mapq, m2.mapq]),
+                              np.concatenate([ok1, ok2]),
+                              2 * int(planted.sum())),
+          "counters": pcounts})
+    check_counters(pcounts, "16 repeats_paired")
+    check(pcounts["tb_dops"]["launches"] == nbp,
+          f"16: paired tb_dops launches {pcounts['tb_dops']['launches']}")
+    t0 = time.perf_counter()
+    on_c3, cpu_c3 = [], []
+    on_p, on_psam = map_pairs_fastq(pm, db, f1c, f2c, on_c3)
+    cpu_p, cpu_psam = map_pairs_fastq(PairedMapper(cpu_mapper), db, f1c,
+                                      f2c, cpu_c3)
+    a1, a2, ap = concat_pairs(on_p)
+    b1_, b2_, bp = concat_pairs(cpu_p)
+    pdiff = [f"m1.{f}" for f in differing(a1, b1_)] \
+        + [f"m2.{f}" for f in differing(a2, b2_)] \
+        + ([] if np.array_equal(ap, bp) else ["proper"])
+    ptb = sorted({f"{m}.{k}" for x, y in zip(on_p, cpu_p)
+                  for m in ("m1", "m2")
+                  for k in tb_differing(getattr(x, m).tb, getattr(y, m).tb)})
+    same_pc3 = all(np.array_equal(x[j], y[j])
+                   for x, y in zip(on_c3, cpu_c3) for j in (0, 1))
+    emit({"phase": "repeats_paired_cpu", "pairs": N_REP_CPU_PAIRS,
+          "fields_differing": pdiff, "tb_keys_differing": ptb,
+          "c3_identical": same_pc3, "sam_identical": on_psam == cpu_psam,
+          "seconds": time.perf_counter() - t0})
+    check(not pdiff, f"16 paired: card and CPU differ in {pdiff}")
+    check(not ptb, f"16 paired: card and CPU tb records differ in {ptb}")
+    check(same_pc3, "16 paired: card and CPU c3_prone rows differ")
+    check(on_psam == cpu_psam, "16 paired: card and CPU SAM bytes differ")
+
+    # 3. -veryfast on the genome's first quarter (auto 25 + 2 = 27
+    # slot_bits: the whole genome's 29-bit build took 85-104 s on the
+    # host of an NVIDIA H100 80GB HBM3 with 8 CPUs, which took the smoke
+    # past half its time limit), beside that quarter's
+    # default index: N_REP reads of the quarter through a Mapper with
+    # VERYFAST_MAP_OVERRIDES (card = CPU on N_REP_CPU) and through the
+    # default Mapper, and -map (which reads the index's flag) over the
+    # reads that are not c3_prone there
+    qufi = os.path.join(rdir, "quarter.ufi")
+    vufi = os.path.join(rdir, "quarter_vf.ufi")
+    qbuild_s = make_ufi(qfa, qufi)
+    vbuild_s = make_ufi(qfa, vufi, "-veryfast")
+    qidx, vidx = UfiIndex.load(qufi), UfiIndex.load(vufi)
+    qdb = qidx.seqdb
+    auto = IndexConfig.auto_slot_bits(qdb.total_len)
+    check(not qidx.config.veryfast and qidx.config.slot_bits == auto
+          and vidx.config.veryfast
+          and vidx.config.slot_bits == min(auto + 2, 30),
+          f"16: the quarter's index configs {qidx.config} {vidx.config}")
+    qcodes, qtpos, qtstrand = simulate(np.random.default_rng(
+        [seed, 16, 3]), qdb, N_REP, READ_LEN, 0.01, 0.10)
+    fq_q = os.path.join(rdir, "quarter.fq")
+    fq_q_cpu = os.path.join(rdir, "quarter_cpu.fq")
+    write_fastq(fq_q, qcodes)
+    write_fastq(fq_q_cpu, qcodes[:N_REP_CPU])
+    qres = Mapper(qidx, mcfg, device=dev).map_codes(
+        qcodes, np.full(N_REP, READ_LEN, np.int32))
+    qcorrect = correct_of(qres, qtpos, qtstrand)
+    del qidx
+    vmcfg = MapConfig(batch_size=B, **VERYFAST_MAP_OVERRIDES)
+    vm = Mapper(vidx, vmcfg, device=dev)
+    vc3 = []
+    vresults, _vsam = map_fastq(vm, qdb, fq_q, B, None, vc3)
+    vres = concat_results(vresults)
+    vc3 = np.concatenate(vc3)
+    vcorrect = correct_of(vres, qtpos, qtstrand)
+    vhead = card_equals_cpu(vm, Mapper(vidx, vmcfg, device="cpu"), qdb,
+                            fq_q_cpu, "veryfast")
+    vhead.pop("sam")
+    keep = np.nonzero(~vc3)[0]
+    fq_vf = os.path.join(rdir, "quarter_vf.fq")
+    write_fastq(fq_vf, qcodes[keep])
+    _kres, vlib_sam = map_fastq(vm, qdb, fq_vf, B, None)
+    vsam = os.path.join(rdir, "quarter_vf.sam")
+    reset_counters()
+    vrun = cli_map(dev, ["-map", fq_vf, "-ufi", vufi, "-samout", vsam,
+                         "-batch", str(B), "-quiet"])
+    paths["veryfast"] = vcounts = read_counters()
+    vbody = b"".join(sam_records(vsam))
+    nbv = -(-len(keep) // B)
+    emit({"phase": "repeats_veryfast", "gpu": smi,
+          "cut": f"the genome's first quarter ({int(qdb.total_len):,} "
+                 f"bases; the segmental duplications' copies lie in the "
+                 f"second half): slot_bits {vidx.config.slot_bits}, not "
+                 f"the whole genome's "
+                 f"{IndexConfig.auto_slot_bits(db.total_len) + 2}",
+          "slot_bits": vidx.config.slot_bits, "slot_bits_default": auto,
+          "positions": vidx.num_positions,
+          "make_ufi_s": {"default": qbuild_s, "veryfast": vbuild_s},
+          "layout": layout_of(vm), "c3_prone": int(vc3.sum()),
+          "cli_reads": len(keep), **vrun,
+          "sam_equals_library": vlib_sam == vbody,
+          "correct_frac": float(vcorrect.mean()),
+          "correct_frac_default": float(qcorrect.mean()),
+          "roc": roc_of(vres.mapped, vres.mapq, vcorrect, N_REP),
+          "roc_default": roc_of(qres.mapped, qres.mapq, qcorrect, N_REP),
+          "suspect": int(vres.suspect.sum()),
+          "suspect_default": int(qres.suspect.sum()),
+          "clip_rescued": int((vres.clipped & vres.mapped).sum()),
+          "cpu": vhead, "counters": vcounts})
+    check_counters(vcounts, "16 veryfast")
+    check(vlib_sam == vbody, "16: -veryfast -map's SAM differs from the "
+          "Mapper's with VERYFAST_MAP_OVERRIDES")
+    check(vcounts["vote"].get("widths") == {Q * VERYFAST_P: nbv},
+          f"16: veryfast vote widths {vcounts['vote'].get('widths')}")
+    check(set(vcounts["row128_fetch"].get("widths", {})) == {VERYFAST_P},
+          f"16: veryfast row entry widths "
+          f"{vcounts['row128_fetch'].get('widths')}")
+    del vm, vidx
+    torch.cuda.empty_cache()
+
+    # 4. the wide second pass at 32 (-secondpass 32) over the same reads
+    t0 = time.perf_counter()
+    sp = Mapper(index, MapConfig(batch_size=B, second_pass_p=32),
+                device=dev)
+    sp_res = sp.map_codes(codes, np.full(N_REP, READ_LEN, np.int32))
+    sp_ok = correct_of(sp_res)
+    plain = res.mapped & ~res.suspect
+    emit({"phase": "repeats_secondpass", "gpu": smi,
+          "seconds": time.perf_counter() - t0,
+          "suspects": int(res.suspect.sum()),
+          "suspects_recovered": int((res.suspect & ~correct
+                                     & sp_ok).sum()),
+          "suspects_lost": int((res.suspect & correct & ~sp_ok).sum()),
+          "unmapped_recovered": int((~res.mapped & sp_ok).sum()),
+          "others_changed": int(differing_rows(res, sp_res)[plain].sum()),
+          "correct_frac": float(sp_ok.mean()),
+          "roc": roc_of(sp_res.mapped, sp_res.mapq, sp_ok, N_REP)})
+    check(not differing_rows(res, sp_res)[plain].any(),
+          "16: the second pass changed a row it does not re-map")
+    emit({"phase": "repeats_done", "seconds": time.perf_counter() - t_phase})
+    return paths
+
+
+def differing_rows(a, b) -> np.ndarray:
+    """bool per row: any of FIELDS differs between two MapResults."""
+    out = np.zeros(len(a.mapped), bool)
+    for f in FIELDS:
+        out |= np.asarray(getattr(a, f)) != np.asarray(getattr(b, f))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3510,6 +4065,7 @@ def main(argv=None) -> int:
     scale_counts = phase_scale(dev, mcfg, sc, smi, work, args.seed)
     mesh = phase_mesh(dev, w, aligned, smi, work)
     phase_device_build(dev, w, smi, work)
+    repeats = phase_repeats(dev, smi, work, args.seed)
 
     src = "urmap_tpu_torch/csrc/"
     tpu = "urmap_tpu/kernels/"
@@ -3551,8 +4107,9 @@ def main(argv=None) -> int:
     variants = {
         "seed_front": ["seed_front_packed", "seed_front_obase_past_2^31"],
         "row128_fetch": ["row128_fetch_tier4", "row128_fetch_tier8",
-                         "row128_fetch_past_2^31"],
-        "vote": ["vote_m256", "vote_m2048"],
+                         "row128_fetch_past_2^31",
+                         f"row128_fetch_p{VERYFAST_P}"],
+        "vote": [f"vote_m{Q * VERYFAST_P}", "vote_m256", "vote_m2048"],
         "window_mismatches": ["window_mismatches_row128"],
         "window_codes": ["window_codes_row128"],
         "banded_dp": ["banded_dp_hw12", "banded_dp_hw24", "banded_dp_hw40",
@@ -3578,7 +4135,8 @@ def main(argv=None) -> int:
     # paired run, semiglobal, shapes, the cli phase's -map runs: cli,
     # endclip, endclip_paired, secondpass, the tiered slice, the scale
     # run and the sharded runs of phase 14, this process's and the four
-    # ranks' summed), each read just after its run
+    # ranks' summed, and phase 16's repeats, repeats_paired and
+    # veryfast), each read just after its run
     # with the counters set to 0 just before it, summed; by path under
     # launches_by_path.
     # banded_semiglobal's path is phase 8 (the winners re-aligned over
@@ -3589,7 +4147,7 @@ def main(argv=None) -> int:
     paths = {"slice": aligned["counts"], "row128": r128["counts"],
              "paired": pe_counts, "semiglobal": sg_counts,
              "shapes": sh_counts, **cli_counts, "tier": tier["counts"],
-             "scale": scale_counts, "mesh": mesh["counts"]}
+             "scale": scale_counts, "mesh": mesh["counts"], **repeats}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []

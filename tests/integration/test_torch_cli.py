@@ -5,7 +5,9 @@
 byte-equal index directories, -ufistats prints the same, each package's
 -map reads the other's index and writes the same SAM bytes (single-end,
 paired, -endclip both ways, -secondpass, -resume after a cut shard,
-.sam.gz, reads past -maxreadlen), -make_ufi -device_build on the CPU
+.sam.gz, reads past -maxreadlen), -make_ufi -veryfast (auto slot_bits
++ 2) writes the same directory and -map on it the same SAM bytes,
+single-end and paired, -make_ufi -device_build on the CPU
 writes the same directory, and what is not ported or not launchable
 refuses. The @PG line carries sys.argv, so both packages run
 under the same sys.argv.
@@ -82,15 +84,16 @@ def corpus(tmp_path_factory):
     return d
 
 
-def _both(d, monkeypatch, args, name, *, cross=True):
+def _both(d, monkeypatch, args, name, *, cross=True, index=""):
     """Run -map ``args`` through both packages (each on the other's
-    index when ``cross``) → (urmap_tpu's SAM bytes, the port's)."""
+    index when ``cross``; ``index`` names the pair of index directories
+    after the package letter) → (urmap_tpu's SAM bytes, the port's)."""
     out = []
     for pkg, mod, kw in (("j", jcli, {}), ("t", tcli, {"device": "cpu"})):
         ufi = {"j": "t", "t": "j"}[pkg] if cross else pkg
         sam = str(d / f"{name}_{pkg}.sam")
-        full = ["-map", *args, "-ufi", str(d / f"{ufi}.ufi"), "-samout", sam,
-                "-quiet"]
+        full = ["-map", *args, "-ufi", str(d / f"{ufi}{index}.ufi"),
+                "-samout", sam, "-quiet"]
         # the @PG line: the same command line for both
         monkeypatch.setattr(sys, "argv", ["urmap", *args])
         assert mod.main(full, **kw) == 0
@@ -110,6 +113,68 @@ def test_make_ufi_writes_equal_index_directories(corpus):
     assert sorted(files) == sorted(theirs) and len(files) > 3
     match, mismatch, errors = filecmp.cmpfiles(j, t, files, shallow=False)
     assert not mismatch and not errors, (mismatch, errors)
+
+
+@pytest.fixture(scope="module")
+def veryfast(corpus):
+    """-make_ufi -veryfast over the corpus's genome by both CLIs, with no
+    -slot_bits, so that the auto slot_bits + 2 and the header flag
+    apply: the directories jvf.ufi and tvf.ufi."""
+    fa = str(corpus / "g.fa")
+    sys_argv = sys.argv
+    try:
+        for name, mod in (("jvf", jcli), ("tvf", tcli)):
+            sys.argv = ["urmap"]
+            assert mod.main(["-make_ufi", fa, "-output",
+                             str(corpus / f"{name}.ufi"), "-veryfast"]) == 0
+    finally:
+        sys.argv = sys_argv
+    return corpus
+
+
+def _files(d):
+    return sorted(os.path.relpath(os.path.join(base, n), d)
+                  for base, _dirs, names in os.walk(d) for n in names)
+
+
+def test_make_ufi_veryfast_writes_equal_index_directories(veryfast):
+    """C.2: -make_ufi -veryfast writes urmap_tpu's directory byte for
+    byte: slot_bits auto + 2, the veryfast flag, and the tables prepared
+    at VERYFAST_MAP_OVERRIDES' positions_per_seed."""
+    from urmap_tpu_torch.config import VERYFAST_MAP_OVERRIDES, IndexConfig
+    from urmap_tpu_torch.index import UfiIndex
+
+    j, t = str(veryfast / "jvf.ufi"), str(veryfast / "tvf.ufi")
+    files = _files(t)
+    assert files == _files(j)
+    p = VERYFAST_MAP_OVERRIDES["positions_per_seed"]
+    assert any(f.startswith(f"prepared_p{p}") for f in files), files
+    match, mismatch, errors = filecmp.cmpfiles(j, t, files, shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
+    idx = UfiIndex.load(t)
+    assert idx.config.veryfast
+    assert idx.config.slot_bits == IndexConfig.auto_slot_bits(
+        idx.seqdb.total_len) + 2
+    assert not UfiIndex.load(str(veryfast / "t.ufi")).config.veryfast
+
+
+@pytest.mark.parametrize("case", ["se", "pe"])
+def test_map_veryfast_writes_urmap_tpus_sam(veryfast, monkeypatch, case):
+    """C.2: -map on a -veryfast index (VERYFAST_MAP_OVERRIDES narrow the
+    gathers) writes urmap_tpu's SAM bytes, single-end and with
+    -reverse, each package on the other's index."""
+    if case == "pe":
+        args = [str(veryfast / "r1.fq"), "-reverse", str(veryfast / "r2.fq")]
+    else:
+        args = [str(veryfast / "se.fq")]
+    want, got = _both(veryfast, monkeypatch, [*args, *BATCH], f"vf_{case}",
+                      index="vf")
+    n = 160 if case == "pe" else 200
+    assert got.count(b"\n") - got.count(b"\n@") - 1 == n
+    assert got == want
+    body = [ln.split(b"\t") for ln in got.split(b"\n")
+            if ln and not ln.startswith(b"@")]
+    assert sum(not int(f[1]) & 4 for f in body) > 0.8 * n
 
 
 def test_ufistats_prints_the_same(corpus, capsys):

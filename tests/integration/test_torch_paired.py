@@ -69,7 +69,7 @@ def world():
     c2 = np.stack([p[1].codes for p in pairs])
     ln = np.full(len(pairs), L, np.int32)
     return db, pairs, c1, c2, ln, jbuild(db, ICFG, backend="host"), \
-        tbuild(db, ICFG)
+        tbuild(db, ICFG, backend="host")
 
 
 def _mappers(world, mcfg=MCFG):

@@ -102,7 +102,8 @@ def _sam(mapper, cigars_fn, db, fq):
 def test_mapper_matches_urmap_tpu(corpus, tmp_path, slot_bits):
     db, reads = corpus
     cfg = None if slot_bits is None else IndexConfig(slot_bits=slot_bits)
-    jidx, tidx = jbuild(db, cfg, backend="host"), tbuild(db, cfg)
+    jidx = jbuild(db, cfg, backend="host")
+    tidx = tbuild(db, cfg, backend="host")
     layout = jprepare(jidx, MCFG.positions_per_seed)[1]["layout"]
     assert layout == ("aligned" if slot_bits is None else "classic")
     jm = JMapper(jidx, MCFG)
@@ -136,7 +137,7 @@ def test_mapper_on_urmap_tpu_tables(corpus):
 
 def test_mapper_refuses_what_is_not_ported(corpus, monkeypatch):
     db, _ = corpus
-    idx = tbuild(db, None)
+    idx = tbuild(db, None, backend="host")
     # the default configuration (device traceback on) is ported
     assert TMapper(idx, MapConfig(batch_size=128), device="cpu").tb
     # so is the tiered gather: the aligned table carries a tier, which

@@ -62,7 +62,7 @@ def corpus():
         codes[i, : len(r.codes)] = r.codes
         lengths[i] = len(r.codes)
     return db, reads, codes, lengths, jbuild(db, None, backend="host"), \
-        tbuild(db, None)
+        tbuild(db, None, backend="host")
 
 
 def _assert_same(want, got, live_only=False):

@@ -36,7 +36,8 @@ def world():
     rng = np.random.default_rng(29)
     db = make_seqdb(rng, [1_500_000])
     cfg = IndexConfig(slot_bits=17)
-    return rng, db, jbuild(db, cfg, backend="host"), tbuild(db, cfg)
+    return (rng, db, jbuild(db, cfg, backend="host"),
+            tbuild(db, cfg, backend="host"))
 
 
 def _same(a, b, rows=slice(None)):

@@ -48,7 +48,8 @@ SHAPES = {
 def world():
     rng = np.random.default_rng(17)
     db = make_seqdb(rng, [250_000])
-    return rng, db, jbuild(db, ICFG, backend="host"), tbuild(db, ICFG)
+    return (rng, db, jbuild(db, ICFG, backend="host"),
+            tbuild(db, ICFG, backend="host"))
 
 
 def _reads(rng, db, mcfg, n=72):

@@ -185,7 +185,7 @@ def _problem(work):
     tidx = build_index(SeqDB.from_seqs(
         [f"chr{i + 1}" for i in range(db.num_seqs)],
         [alphabet.decode(db.codes[int(s) : int(s) + int(n)])
-         for s, n in zip(db.starts, db.lengths)]))
+         for s, n in zip(db.starts, db.lengths)]), backend="host")
     tidx.save(os.path.join(work, "g.ufi"))
 
     # the skewed genome (tests/unit/test_sharded.py): half the reads
@@ -195,7 +195,8 @@ def _problem(work):
     unit = rng.integers(0, 4, size=7).astype(np.uint8)
     third = glen // 3
     seq[third : 2 * third] = np.tile(unit, third // 7 + 1)[:third]
-    skew = build_index(SeqDB.from_seqs(["chr1"], [alphabet.decode(seq)]))
+    skew = build_index(SeqDB.from_seqs(["chr1"], [alphabet.decode(seq)]),
+                       backend="host")
     skew.save(os.path.join(work, "skew.ufi"))
     sk = np.full((48, L), 5, np.uint8)
     for i in range(48):

@@ -53,7 +53,8 @@ TB_KEYS = ("rows", "score", "pos", "strand", "cols", "dops", "hw", "L")
 def world():
     rng = np.random.default_rng(7)
     db = make_seqdb(rng, [80_000])
-    return rng, db, jbuild(db, ICFG, backend="host"), tbuild(db, ICFG)
+    return (rng, db, jbuild(db, ICFG, backend="host"),
+            tbuild(db, ICFG, backend="host"))
 
 
 def _indel_reads(rng, db, n, every=1):
@@ -310,7 +311,7 @@ def test_random_tails_fall_back_alike(n, batch, overflow):
     codes, lens = _pad_batch(reads, L=160)
     mcfg = MapConfig(batch_size=batch)          # the default: tb_bits on
     jm = jpipe.Mapper(jbuild(db, None, backend="host"), mcfg)
-    tm = tpipe.Mapper(tbuild(db, None), mcfg, device="cpu")
+    tm = tpipe.Mapper(tbuild(db, None, backend="host"), mcfg, device="cpu")
     want, got = jm.map_codes(codes, lens), tm.map_codes(codes, lens)
     _assert_same_result(want, got)
     winners = np.nonzero(got.mapped & got.gapped & ~got.clipped)[0]

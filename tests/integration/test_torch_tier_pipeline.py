@@ -76,7 +76,7 @@ def world():
                         snp_every=(15 if i % 4 == 0 else None))[:2]
              for i in range(64)]
     return db, reads, pairs, jbuild(db, None, backend="host"), \
-        tbuild(db, None)
+        tbuild(db, None, backend="host")
 
 
 @pytest.fixture(autouse=True)

@@ -130,6 +130,38 @@ def test_constant_copy_equals_source(rel, name):
     assert block("urmap_tpu_torch") == theirs
 
 
+# functions the port's accuracy tool (urmap_tpu_torch/tools/accuracy.py)
+# copies from tools/accuracy.py, each under a comment line naming it;
+# simulate's alphabet import is its one changed line
+TOOL_COPIES = {
+    "simulate": ("    from urmap_tpu_torch import alphabet\n",
+                 "    from urmap_tpu import alphabet\n"),
+    "plant_repeat_families": None,
+}
+
+
+@pytest.mark.parametrize("name", list(TOOL_COPIES))
+def test_tool_copy_equals_source(name):
+    import ast
+
+    def function(*parts):
+        text = _read(*parts).decode()
+        node = next(n for n in ast.parse(text).body
+                    if isinstance(n, ast.FunctionDef) and n.name == name)
+        lines = text.splitlines(keepends=True)
+        return "".join(lines[node.lineno - 1 : node.end_lineno]), \
+            lines[node.lineno - 2]
+
+    theirs, _ = function("tools", "accuracy.py")
+    ours, above = function("urmap_tpu_torch", "tools", "accuracy.py")
+    assert above.startswith(f"# tools/accuracy.py:{name}")
+    changed = TOOL_COPIES[name]
+    if changed is not None:
+        assert ours.count(changed[0]) == 1 and theirs.count(changed[1]) == 1
+        ours = ours.replace(*changed)
+    assert ours == theirs
+
+
 def test_port_source_never_imports_the_reference_or_jax():
     """No ``import``/``from`` of urmap_tpu or jax in the port's Python
     sources or in chip_smoke.py (docstrings and comments included: a

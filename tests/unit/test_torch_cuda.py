@@ -180,7 +180,7 @@ def test_cuda_mapper_matches_cpu_mapper(cuda_device, max_read_len, tb_bits):
                         ins=int(rng.integers(0, 2)) * 4) for _ in range(500)]
     codes = np.stack([r.codes for r in reads])
     lengths = np.full(len(reads), 150, np.int32)
-    idx = build_index(db)
+    idx = build_index(db, backend="host")
     mcfg = MapConfig(batch_size=256, max_read_len=max_read_len,
                      tb_bits=tb_bits)
     for c in counters():
@@ -604,7 +604,7 @@ def test_cuda_paired_mapper_matches_cpu(cuda_device, monkeypatch, row128):
     c1 = np.stack([p[0].codes for p in pairs])
     c2 = np.stack([p[1].codes for p in pairs])
     ln = np.full(len(pairs), 150, np.int32)
-    idx = build_index(db)
+    idx = build_index(db, backend="host")
     mcfg = MapConfig(batch_size=256)
     for c in counters():
         c.reset()
@@ -892,7 +892,7 @@ def test_cuda_mapper_new_shapes_match_cpu(cuda_device, hw, max_read_len, p):
     codes = np.full((n, max_read_len), 5, np.uint8)
     for i, r in enumerate(reads):
         codes[i, : len(r.codes)] = r.codes
-    idx = build_index(db)
+    idx = build_index(db, backend="host")
     mcfg = MapConfig(batch_size=256, max_read_len=max_read_len,
                      band_halfwidth=hw, positions_per_seed=p,
                      rescue_window=2 * max_read_len + 1200)
@@ -1087,7 +1087,7 @@ def test_cuda_mapper_tiered_gather_matches_cpu(cuda_device, monkeypatch):
               for i in range(32)]
     codes = np.stack([r.codes for r in reads])
     ln = np.full(len(reads), 150, np.int32)
-    idx = build_index(db)
+    idx = build_index(db, backend="host")
     mcfg = MapConfig(batch_size=256)
     monkeypatch.setenv("URMAP_TIER_GATHER", "1")
     m = Mapper(idx, mcfg, device=cuda_device)
@@ -1123,7 +1123,7 @@ def test_device_build_on_the_card_matches_host(cuda_device, tmp_path, k,
     rng = np.random.default_rng(11)
     db = make_seqdb(rng, [60_000, 9_000])
     cfg = IndexConfig(k=k, slot_bits=slot_bits, max_positions_per_slot=8)
-    want = build_index(db, cfg)
+    want = build_index(db, cfg, backend="host")
     for kw in ({}, {"chunk": 7_001},
                {"chunk": 5_000, "spill_threshold": 9_000,
                 "spill_dir": str(tmp_path)}):

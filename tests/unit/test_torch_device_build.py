@@ -125,7 +125,7 @@ def test_device_build_matches_jax_and_host(case, tmp_path, monkeypatch):
     got = tbuild.build_index(db, IndexConfig(**fields), backend="device",
                              device="cpu", **kw, **spill)
     monkeypatch.undo()
-    host = tbuild.build_index(db, IndexConfig(**fields))
+    host = tbuild.build_index(db, IndexConfig(**fields), backend="host")
     for other in (want, host):
         np.testing.assert_array_equal(got.offsets, other.offsets)
         np.testing.assert_array_equal(got.positions, other.positions)
@@ -144,7 +144,7 @@ def test_device_build_matches_jax_and_host(case, tmp_path, monkeypatch):
 def test_device_build_defaults_and_refusals(monkeypatch):
     seqs, _ = _seqs("plain")
     db = SeqDB.from_seqs(["c0", "c1"], seqs)
-    assert tbuild.build_index.__kwdefaults__["backend"] == "host"
+    assert tbuild.build_index.__kwdefaults__["backend"] == "device"
     assert tbuild.DEFAULT_CHUNK == jbuild.DEFAULT_CHUNK
     chunks = []
     real = tbuild._chunk_sorted_slots
@@ -156,7 +156,7 @@ def test_device_build_defaults_and_refusals(monkeypatch):
     monkeypatch.setattr(tbuild, "_chunk_sorted_slots", seen)
     tbuild.build_index(db, backend="device", device="cpu")
     assert chunks == [("cpu", 0, len(db.codes))]  # DEFAULT_CHUNK: one
-    tbuild.build_index(db)                         # host: no device chunk
+    tbuild.build_index(db, backend="host")         # host: no device chunk
     assert len(chunks) == 1
     with pytest.raises(ValueError, match="backend"):
         tbuild.build_index(db, backend="xla")
@@ -164,4 +164,6 @@ def test_device_build_defaults_and_refusals(monkeypatch):
         pytest.skip("a CUDA card is present: the device build runs on it")
     with pytest.raises(RuntimeError, match="cuda"):
         tbuild.build_index(db, backend="device")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tbuild.build_index(db)                     # the default: the card
     assert len(chunks) == 1

@@ -34,7 +34,8 @@ def world():
     rng = np.random.default_rng(17)
     db = make_seqdb(rng, [300_000])
     cfg = IndexConfig(slot_bits=16)
-    return rng, db, jbuild(db, cfg, backend="host"), tbuild(db, cfg)
+    return (rng, db, jbuild(db, cfg, backend="host"),
+            tbuild(db, cfg, backend="host"))
 
 
 def _same(a, b):

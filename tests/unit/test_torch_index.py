@@ -37,7 +37,7 @@ def test_host_build_matches(db, monkeypatch, native):
         monkeypatch.setenv("URMAP_NO_NATIVE_BUILD", "1")
     for cfg in (IndexConfig(slot_bits=15, max_positions_per_slot=32), None):
         a = jbuild(db, cfg, backend="host")
-        b = tbuild(db, cfg)
+        b = tbuild(db, cfg, backend="host")
         # each package has its own IndexConfig class: compare the fields
         assert dataclasses.asdict(a.config) == dataclasses.asdict(b.config)
         np.testing.assert_array_equal(a.offsets, b.offsets)
@@ -65,7 +65,7 @@ def test_prepare_tables_matches(db, monkeypatch, case):
         monkeypatch.setenv("URMAP_ROW128_BYTES", "1")
     cfg = IndexConfig(slot_bits=slot_bits)
     a = jstore.prepare_tables(jbuild(db, cfg, backend="host"), p)
-    b = tstore.prepare_tables(tbuild(db, cfg), p)
+    b = tstore.prepare_tables(tbuild(db, cfg, backend="host"), p)
     assert a[1]["layout"] == case
     _assert_prepared_equal(a, b)
 
@@ -96,7 +96,7 @@ def test_tables_from_numpy(db, monkeypatch):
     dev = torch.device("cpu")
     tables = tstore.tables_from_numpy(ht, meta, dev)
     own = tstore.tables_to_device(
-        tstore.prepare_tables(tbuild(db, cfg), 16)[0], dev)
+        tstore.prepare_tables(tbuild(db, cfg, backend="host"), 16)[0], dev)
     for key in ("offsets", "positions", "ginter"):
         assert tables[key].dtype == torch.int32
         assert torch.equal(tables[key], own[key]), key

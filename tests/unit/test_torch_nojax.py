@@ -8,7 +8,8 @@ records are replayed) on the CPU through the single-end SAM path with
 the default MapConfig, then a pair batch over a row128 table, then the command line
 (``cli.main`` -make_ufi and -map on the CPU, then -map on a sharded 1 x 1
 mesh; ``cli``, ``__main__``, ``dist.multihost`` and ``dist.sharded``
-imported by name). Afterwards no module named
+imported by name), then the accuracy tool (``tools.accuracy.main`` with
+``--cpu`` at a tiny size). Afterwards no module named
 ``urmap_tpu`` or ``urmap_tpu.*`` and no ``jax*`` may be loaded. The
 machine with the card has no JAX.
 """
@@ -50,7 +51,8 @@ for i in range(0, 64, 4):                   # a 3-base deletion
     codes[i, 70:150] = codes[i, 73:153]
 codes = codes[:, :150].copy()
 codes[1::2] = alphabet.COMP_CODE[codes[1::2, ::-1]]
-mapper = Mapper(build_index(db), MapConfig(batch_size=64), device="cpu")
+mapper = Mapper(build_index(db, backend="host"), MapConfig(batch_size=64),
+                device="cpu")
 assert mapper.tb
 # the device build (extract, hash and sort in torch) in 4 chunks
 dev_index = build_index(db, backend="device", device="cpu", chunk=16_000)
@@ -106,6 +108,16 @@ with tempfile.TemporaryDirectory() as d:
                      "64", "-quiet", "-mesh", "1x1", "-route", "psum"],
                     device="cpu") == 0
     assert [ln for ln in open(sam1) if not ln.startswith("@")] == body
+# the accuracy tool at a tiny size on the CPU: its table and JSON line
+import contextlib, io, json
+from urmap_tpu_torch.tools import accuracy
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert accuracy.main(["--cpu", "--genome-mbp", "0.05", "--reads", "64",
+                          "--batch", "64", "--repeat-frac", "0.25"]) == 0
+roc = json.loads(out.getvalue().splitlines()[-1])
+assert roc["metric"] == "accuracy_roc" and len(roc["roc"]) == 7
+assert roc["roc"][0]["called"] > 48, roc
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("jax", "jaxlib", "urmap_tpu")
     or m.startswith(("jax.", "jaxlib.", "urmap_tpu."))))

@@ -144,7 +144,7 @@ def row128_tables():
     os.environ["URMAP_ROW128_BYTES"] = "1"
     try:
         jprep = jstore.prepare_tables(index, p)
-        tprep = tstore.prepare_tables(tbuild(db, cfg), p)
+        tprep = tstore.prepare_tables(tbuild(db, cfg, backend="host"), p)
     finally:
         if old is None:
             del os.environ["URMAP_ROW128_BYTES"]

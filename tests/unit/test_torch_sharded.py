@@ -31,7 +31,8 @@ def _index_pair(seed, n, slot_bits):
     from urmap_tpu.config import IndexConfig as JCfg
 
     kw = {} if slot_bits is None else {"slot_bits": slot_bits}
-    return (tbuild(SeqDB.from_seqs(["chr1"], [seq]), IndexConfig(**kw)),
+    return (tbuild(SeqDB.from_seqs(["chr1"], [seq]), IndexConfig(**kw),
+                   backend="host"),
             jbuild(JSeqDB.from_seqs(["chr1"], [seq]), JCfg(**kw),
                    backend="host"))
 

@@ -72,13 +72,14 @@ def test_spill_build_matches(db, tmp_path, monkeypatch, native, k,
 
         monkeypatch.setattr(tbuild_mod._RadixSpill, name, count)
     spill = tbuild_mod.build_index(db, cfg, spill_threshold=9_000,
-                                   chunk=chunk, spill_dir=str(tmp_path))
+                                   chunk=chunk, spill_dir=str(tmp_path),
+                                   backend="host")
     assert finals == [1 << min(8, slot_bits)]      # the spill path ran
     n_words = db.total_len - k + 1
     assert len(appends) == -(-n_words // chunk)    # in as many chunks
     assert (len(appends) > 1) == (chunk < n_words)
     assert os.listdir(tmp_path) == []              # and left nothing
-    inram = tbuild_mod.build_index(db, cfg)
+    inram = tbuild_mod.build_index(db, cfg, backend="host")
     assert len(finals) == 1                        # the in-RAM path
     _assert_same(spill, inram)
     ref = jbuild_mod.build_index(db, cfg, backend="host",
@@ -108,7 +109,7 @@ def test_spill_dir_removed_when_the_build_raises(db, tmp_path, monkeypatch,
     with pytest.raises(RuntimeError, match="finalize failed"):
         tbuild_mod.build_index(db, IndexConfig(k=24, slot_bits=14),
                                spill_threshold=9_000,
-                               spill_dir=str(tmp_path))
+                               spill_dir=str(tmp_path), backend="host")
     assert os.listdir(tmp_path) == []
 
 

@@ -42,7 +42,7 @@ def world():
     icfg = IndexConfig(slot_bits=20)
     rw = jseed.align_row_words(P)
     jt = jbuild(db, icfg, backend="host").host_tables(cap=P, row_align=rw)
-    ht = tbuild(db, icfg).host_tables(cap=P, row_align=rw)
+    ht = tbuild(db, icfg, backend="host").host_tables(cap=P, row_align=rw)
     np.testing.assert_array_equal(jt["positions"], ht["positions"])
     unique = np.stack([plant_read(rng, db, length=80, strand=0, n_snps=1,
                                   gpos=int(rng.integers(0, 190_000))).codes

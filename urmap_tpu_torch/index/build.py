@@ -3,15 +3,16 @@
 Both backends of urmap_tpu/index/build.py, with the same tables bit for
 bit:
 
-- ``backend="host"`` (the default here): the multithreaded C++
-  extract/partition and radix sort of the io.native codecs, with the
-  bit-identical numpy twins when the native library is missing or
-  URMAP_NO_NATIVE_BUILD=1;
-- ``backend="device"``: each chunk of word starts is extracted, hashed
-  and sorted by (slot, position) on a torch device (``torch.sort``, as
-  the reference sorts with ``jax.lax.sort`` outside any Pallas kernel),
-  the card unless the caller asks for the CPU; the host merges the
-  sorted runs, or streams them into the spill.
+- ``backend="device"`` (the default, as the reference's): each chunk
+  of word starts is extracted, hashed and sorted by (slot, position) on
+  a torch device (``torch.sort``, as the reference sorts with
+  ``jax.lax.sort`` outside any Pallas kernel), the card unless the
+  caller asks for the CPU; the host merges the sorted runs, or streams
+  them into the spill;
+- ``backend="host"`` (what the command line takes unless
+  ``-device_build``): the multithreaded C++ extract/partition and radix
+  sort of the io.native codecs, with the bit-identical numpy twins when
+  the native library is missing or URMAP_NO_NATIVE_BUILD=1.
 
 Genomes above ``spill_threshold`` words (GRCh38 scale: ~3.1G words)
 stream through the disk radix spill (``_RadixSpill``): chunks of
@@ -371,15 +372,16 @@ def _host_chunk_slots(codes: np.ndarray, start: int, stop: int, k: int,
 
 # urmap_tpu/index/build.py:build_index
 def build_index(seqdb: SeqDB, cfg: IndexConfig | None = None, *,
-                backend: str = "host", device=None,
+                backend: str = "device", device=None,
                 chunk: int | None = None,
                 spill_threshold: int = SPILL_THRESHOLD,
                 spill_dir: str | None = None) -> UfiIndex:
     """Build the UFI index for a SeqDB. ``cfg=None`` auto-sizes
-    slot_bits from the genome length. ``backend``: "host" (C++ or numpy)
-    or "device" (extract, hash and sort on ``device``: "cuda" when None,
-    which raises without a card). Each processes ``chunk`` words at a
-    time (``DEFAULT_CHUNK`` on the device, ``HOST_CHUNK`` on the host;
+    slot_bits from the genome length. ``backend``: "device" (the
+    default, as the reference's: extract, hash and sort on ``device``,
+    "cuda" when None, which raises without a card) or "host" (C++ or
+    numpy; the command line's default). Each processes ``chunk`` words
+    at a time (``DEFAULT_CHUNK`` on the device, ``HOST_CHUNK`` on the host;
     the host's in-RAM build takes the genome whole). Genomes with more
     than ``spill_threshold`` words stream through a disk radix spill
     under ``spill_dir`` (tempfile's default when None). The output is

@@ -37,7 +37,9 @@ class Counter:
     inside ``host_pass()``). ``widths`` splits the launches by a size
     the wrapper records: the fetches' output width (the window entries:
     the verify, DP and rescue shapes; the row entry: the tiered
-    gather's narrow and full-width passes), B1's candidate count."""
+    gather's narrow and full-width passes, and positions_per_seed), B1's
+    candidate count, B4's candidates a read (seeds_per_read x
+    positions_per_seed)."""
 
     def __init__(self, name: str):
         self.name = name

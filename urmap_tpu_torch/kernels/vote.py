@@ -26,5 +26,5 @@ def vote(cand: torch.Tensor, *, v: int):
         return vote_top_candidates(cand, v=v)
     _build.load()
     top, votes = torch.ops.urmap.vote(cand, v)
-    counter.launched()
+    counter.launched(cand.shape[1])
     return top, votes
