@@ -167,6 +167,22 @@ input.
 Phase 3 also holds B4 at 64 candidates a read and B5's row entry at
 positions_per_seed 8 over the aligned layout's 16-word rows, the
 -veryfast path's shapes.
+Phase 17, tools (after phase 16): the port's tools as a user calls
+them (urmap_tpu_torch/tools/). (a) suspect_sweep over phase 16's index
+(--index-cache, 65,536 reads, batch 16,384, 8 positions a seed), its
+table printed, and its premise: a Mapper with the gate on gives the
+MAPQs of the host's re-application at mismatch_equiv(6); (b)
+a2a_rounds at 8 shards, 16 batches of 8,192 reads over that index (B3's
+slots mode), and card = --cpu on 2 batches at the adaptive slack and at
+URMAP_A2A_SLACK=0.3; (c) make_verify_corpus, then -map single-end and
+-reverse through cli.main (counted) and python -m urmap_tpu_torch (the
+same bodies), every plant at its POS and strand, the indel reads with I
+or D, the junk unmapped, every mate placed and proper, the rescue pairs
+placed, and the single-end body equal to a CPU run's; (d)
+make_g38_corpus with 65,536 reads over phase 10's index of the setup
+genome, -map single-end and -reverse, scored by tools/check_sam_truth.py
+(run as a script), correct >= 0.99 over the reads whose planted span
+holds no genome N.
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and
 the final {"ok": true, ...} line. Any failed check exits non-zero.
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -3964,6 +3980,331 @@ def phase_repeats(dev, smi: str, work: str, seed: int) -> dict:
     return paths
 
 
+# ---- phase 17: the port's tools ------------------------------------------
+
+N_SWEEP, SWEEP_BATCH = 65_536, 16_384    # 17a's reads and batch
+A2A_SHARDS, A2A_BATCHES, A2A_BATCH = 8, 16, 8192      # 17b
+A2A_CPU_BATCHES = 2                       # 17b's card = CPU comparison
+N_G38 = 65_536                            # 17d's single-end reads
+G38_MIN_CORRECT = 0.99                    # 17d, reads clear of genome N
+G38_SPAN = READ_LEN + 8                   # a planted read's genome span
+
+
+def tool_stdout(fn, *args) -> tuple:
+    """fn(*args) with its stdout captured (the JSON lines here stay
+    the smoke's): (its return value, the lines it printed)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        ret = fn(*args)
+    return ret, out.getvalue().splitlines()
+
+
+def sam_fields(path: str) -> list:
+    """The record lines of a SAM file, as their first six fields."""
+    with open(path) as f:
+        return [ln.split("\t", 6)[:6] for ln in f if not ln.startswith("@")]
+
+
+def score_verify_se(sam: str, truth_tsv: str, start_of: dict) -> dict:
+    """The verify corpus' single-end reads by kind (read i is of kind
+    i % 6, tools/make_verify_corpus.py): the planted reads (exact, 3
+    SNPs, a 2-base insertion, a 2-base deletion, reverse strand with a
+    SNP) at their global POS and strand, the indel reads with I or D in
+    the CIGAR, the junk reads unmapped (flag 4)."""
+    import re
+
+    kinds = ("exact", "snp", "ins", "del", "revcomp", "junk")
+    with open(truth_tsv) as f:
+        truth = [ln.split("\t") for ln in f.read().splitlines()]
+    out = {k: {"reads": 0, "ok": 0} for k in kinds}
+    for qname, flag, rname, pos, _mapq, cigar in sam_fields(sam):
+        i, flag = int(qname[1:]), int(flag)
+        kind = kinds[i % 6]
+        gpos, strand = int(truth[i][1]), int(truth[i][2])
+        if kind == "junk":
+            ok = bool(flag & 4)
+        else:
+            ok = (not flag & 4 and bool(flag & 16) == bool(strand)
+                  and start_of[rname] + int(pos) - 1 == gpos)
+            if kind in ("ins", "del"):
+                ok = ok and re.search(r"\d[ID]", cigar) is not None
+        out[kind]["reads"] += 1
+        out[kind]["ok"] += int(ok)
+    return out
+
+
+def score_verify_pe(sam: str, truth_tsv: str, start_of: dict) -> dict:
+    """The verify corpus' pairs: each mate at its global POS, proper
+    pairs (flag 0x2), and the rescue pairs (R2 mutated every 15th base,
+    placed only by the mate-rescue scan) with both mates placed."""
+    with open(truth_tsv) as f:
+        truth = [ln.split("\t") for ln in f.read().splitlines()]
+    out = {"mates": 0, "mates_placed": 0, "proper_mates": 0,
+           "rescue_mates": 0, "rescue_mates_placed": 0}
+    for qname, flag, rname, pos, _mapq, _cigar in sam_fields(sam):
+        i, flag = int(qname[1:]), int(flag)
+        want = int(truth[i][2 if flag & 0x80 else 1])
+        ok = not flag & 4 and start_of[rname] + int(pos) - 1 == want
+        out["mates"] += 1
+        out["mates_placed"] += int(ok)
+        out["proper_mates"] += int(bool(flag & 2))
+        if truth[i][3] == "1":
+            out["rescue_mates"] += 1
+            out["rescue_mates_placed"] += int(ok)
+    return out
+
+
+def score_g38(sam: str, truth_npy: str, genome, ref_start: int,
+              pe: bool) -> dict:
+    """tools/check_sam_truth.py's score of a corpus of
+    tools/make_g38_corpus.py (run as a script: it imports numpy only),
+    and by the same rule (mapped, POS - 1 + ref_start equal to the
+    planted coordinate) the correct share of all reads, and of the
+    reads whose planted genome span holds no N: synth_reads samples the
+    whole chromosome, N runs included."""
+    cmd = [sys.executable, os.path.join(ROOT, "tools", "check_sam_truth.py"),
+           sam, truth_npy, "--ref-start", str(ref_start)]
+    proc = subprocess.run(cmd + (["--pe"] if pe else []), cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"check_sam_truth: {proc.stderr[-400:]}")
+    tool = json.loads(proc.stdout.strip().splitlines()[-1])
+    truth = np.load(truth_npy).reshape(2 if pe else 1, -1)
+    pos = np.full(truth.shape, -1, np.int64)
+    for qname, flag, _rname, p, _mapq, _cigar in sam_fields(sam):
+        flag = int(flag)
+        if not flag & 4:
+            pos[int(bool(pe and flag & 0x80)), int(qname[1:])] = \
+                int(p) - 1 + ref_start
+    ok = pos == truth
+    span = truth[..., None] + np.arange(G38_SPAN)
+    clear = ~(genome[np.minimum(span, len(genome) - 1)] == 4).any(-1)
+    return {"check_sam_truth": tool, "reads": int(truth.size),
+            "correct_frac": float(ok.mean()),
+            "n_free_reads": int(clear.sum()),
+            "correct_frac_n_free": float(ok[clear].mean())}
+
+
+def phase_tools(dev, work: str, smi: str) -> dict:
+    """Phase 17: the port's tools (urmap_tpu_torch/tools/), each as a
+    user calls it, on the card. (a) suspect_sweep over phase 16's
+    repeat index (--index-cache) with N_SWEEP reads, and its premise: a
+    Mapper with the gate on (suspect_deficit None) gives the MAPQs of the
+    host re-application at mismatch_equiv(6); (b) a2a_rounds over that
+    index (B3's slots mode), and card = --cpu on A2A_CPU_BATCHES
+    batches; (c) make_verify_corpus, then -map single-end and -reverse
+    (cli.main in this process, counted, and python -m urmap_tpu_torch,
+    the same bodies), scored against the truth TSVs, and the single-end
+    body equal to cli.main(..., device="cpu")'s; (d) make_g38_corpus with
+    N_G38 reads over phase 10's index of the setup genome, -map both,
+    scored by tools/check_sam_truth.py. Returns the counts of the paths
+    tools_sweep, tools_a2a, tools_verify_se, tools_verify_pe, tools_g38_se
+    and tools_g38_pe."""
+    import torch
+
+    from urmap_tpu_torch import cli
+    from urmap_tpu_torch.config import resolve_suspect_deficits
+    from urmap_tpu_torch.index import UfiIndex
+    from urmap_tpu_torch.index.store import save_prepared
+    from urmap_tpu_torch.map import Mapper
+    from urmap_tpu_torch.tools import (a2a_rounds, make_g38_corpus,
+                                       make_verify_corpus, suspect_sweep)
+
+    t_phase = time.perf_counter()
+    paths = {}
+    rufi = os.path.join(work, "repeats", "g.ufi")
+
+    # (a) the suspect sweep over phase 16's index; its --genome-mbp must
+    # give back the genome's length through int(mbp * 1e6)
+    mbp = repr((CHR21_LEN + 0.5) / 1e6)
+    check(int(float(mbp) * 1e6) == CHR21_LEN, f"17a: --genome-mbp {mbp}")
+    t0 = time.perf_counter()
+    save_prepared(UfiIndex.load(rufi), rufi, VERYFAST_P)   # the sweep's p
+    prep_s = time.perf_counter() - t0
+    argv = ["--index-cache", rufi, "--genome-mbp", mbp, "--reads",
+            str(N_SWEEP), "--batch", str(SWEEP_BATCH)]
+    reset_counters()
+    t0 = time.perf_counter()
+    run, lines = tool_stdout(suspect_sweep.sweep, argv)
+    torch.cuda.synchronize(dev)
+    sweep_s = time.perf_counter() - t0
+    paths["tools_sweep"] = counts = read_counters()
+    check_counters(counts, "17a suspect_sweep")
+    check(run["device"].type == "cuda", "17a: the sweep did not map on "
+          "the card")
+    res, mcfg, sc = run["res"], run["mcfg"], run["sc"]
+    gated_cfg = dataclasses.replace(mcfg, suspect_deficit=None)
+    T, _remap = resolve_suspect_deficits(gated_cfg, sc)
+    gated = Mapper(run["index"], gated_cfg, device=dev).map_codes(
+        run["codes"], run["lengths"])
+    host = suspect_sweep.reapply_gate(res, run["lengths"], T, sc, mcfg)
+    premise = {"T": T, "capped": int((host != res.mapq).sum()),
+               "mapq_differing": int((gated.mapq != host).sum()),
+               "other_fields_differing": [
+                   f for f in FIELDS if f != "mapq"
+                   and not np.array_equal(getattr(gated, f),
+                                          getattr(res, f))]}
+    emit({"phase": "tools_sweep", "gpu": smi, "argv": argv,
+          "prepare_p8_s": prep_s, "seconds": sweep_s,
+          "reads_per_s": N_SWEEP / sweep_s,
+          "correct_frac": float(run["correct"].mean()),
+          "table": [ln for ln in lines if not ln.startswith("# cached")],
+          "premise": premise, "counters": counts})
+    check(T == sc.mismatch_equiv(6), f"17a: derived T {T}")
+    check(len(lines) == 3 + 1 + 5, f"17a: the sweep printed {lines}")
+    check(premise["mapq_differing"] == 0
+          and not premise["other_fields_differing"],
+          f"17a: the host gate at T={T} is not the device gate: {premise}")
+    check(counts["vote"].get("widths") == {Q * VERYFAST_P:
+                                           N_SWEEP // SWEEP_BATCH},
+          f"17a: vote widths {counts['vote'].get('widths')}")
+    del run, res, gated
+    torch.cuda.empty_cache()
+
+    # (b) a2a_rounds: the seed front's slots mode, on the card and on the
+    # CPU (--cpu) over the same first batches
+    a2a = ["--index-cache", rufi, "--shards", str(A2A_SHARDS), "--batch",
+           str(A2A_BATCH)]
+    reset_counters()
+    t0 = time.perf_counter()
+    _, lines = tool_stdout(a2a_rounds.main,
+                           a2a + ["--batches", str(A2A_BATCHES)])
+    torch.cuda.synchronize(dev)
+    a2a_s = time.perf_counter() - t0
+    paths["tools_a2a"] = counts = read_counters()
+    got = json.loads(lines[-1])
+    slots_launches = counts["seed_front_slots"]["launches"]
+    # card = --cpu on the first batches, at the adaptive slack and at
+    # URMAP_A2A_SLACK=0.3 (its override), where batches take several
+    # rounds, so the slot counts a shard are compared too
+    short = a2a + ["--batches", str(A2A_CPU_BATCHES)]
+    t0 = time.perf_counter()
+    pairs = {}
+    for slack in (None, "0.3"):
+        if slack:
+            os.environ["URMAP_A2A_SLACK"] = slack
+        try:
+            pairs[slack or "adaptive"] = [
+                json.loads(tool_stdout(a2a_rounds.main, short + extra)[1][-1])
+                for extra in ([], ["--cpu"])]
+        finally:
+            os.environ.pop("URMAP_A2A_SLACK", None)
+    emit({"phase": "tools_a2a", "gpu": smi, "seconds": a2a_s,
+          "result": got, "table": lines[:-1],
+          "card_equals_cpu": {k: a == b for k, (a, b) in pairs.items()},
+          "short": {k: a for k, (a, _b) in pairs.items()},
+          "short_seconds": time.perf_counter() - t0, "counters": counts})
+    check(slots_launches == 2 * A2A_BATCHES,
+          f"17b: seed_front_slots launches {slots_launches}")
+    check(all(c["plain_calls"] == 0 for c in counts.values()),
+          "17b: a plain version ran on the card's run")
+    check(got["metric"] == "a2a_rounds" and got["shards"] == A2A_SHARDS,
+          f"17b: {got}")
+    for k, (card, cpu) in pairs.items():
+        check(card == cpu, f"17b {k}: card {card} != --cpu {cpu}")
+    check(pairs["0.3"][0]["adaptive"]["rounds_max"] > 1,
+          f"17b: slack 0.3 took one round: {pairs['0.3'][0]}")
+
+    # (c) the verify corpus
+    vdir = os.path.join(work, "verify")
+    t0 = time.perf_counter()
+    check(tool_stdout(make_verify_corpus.main, [vdir])[0] == 0,
+          "17c: make_verify_corpus")
+    corpus_s = time.perf_counter() - t0
+    ufi = os.path.join(vdir, "g.ufi")
+    vdb = UfiIndex.load(ufi).seqdb
+    start_of = {lb: int(s) for lb, s in zip(vdb.labels, vdb.starts)}
+    se_in = ["-map", os.path.join(vdir, "se.fq"), "-ufi", ufi]
+    pe_in = ["-map", os.path.join(vdir, "r1.fq"), "-reverse",
+             os.path.join(vdir, "r2.fq"), "-ufi", ufi]
+    runs, bodies = {}, {}
+    for name, args in (("se", se_in), ("pe", pe_in)):
+        sam = os.path.join(vdir, f"{name}.sam")
+        reset_counters()
+        runs[name] = cli_map(dev, args + ["-samout", sam, "-quiet"])
+        paths[f"tools_verify_{name}"] = read_counters()
+        bodies[name] = b"".join(sam_records(sam))
+        # the same command as its own process
+        sub = os.path.join(vdir, f"{name}_sub.sam")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "urmap_tpu_torch", *args, "-samout", sub,
+             "-quiet"], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            capture_output=True, text=True, timeout=600)
+        runs[name]["subprocess_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"17c: python -m urmap_tpu_torch {name}: {proc.stderr[-400:]}")
+        runs[name]["subprocess_equal"] = proc.returncode == 0 and \
+            b"".join(sam_records(sub)) == bodies[name]
+    se = score_verify_se(os.path.join(vdir, "se.sam"),
+                         os.path.join(vdir, "se_truth.tsv"), start_of)
+    pe = score_verify_pe(os.path.join(vdir, "pe.sam"),
+                         os.path.join(vdir, "pe_truth.tsv"), start_of)
+    cpu_sam = os.path.join(vdir, "se_cpu.sam")
+    t0 = time.perf_counter()
+    check(tool_stdout(lambda: cli.main(
+        se_in + ["-samout", cpu_sam, "-quiet", "-batch", "3000"],
+        device="cpu"))[0] == 0, "17c: cli.main on the CPU")
+    cpu_equal = b"".join(sam_records(cpu_sam)) == bodies["se"]
+    emit({"phase": "tools_verify", "gpu": smi, "corpus_s": corpus_s,
+          "runs": runs, "se": se, "pe": pe, "se_card_equals_cpu": cpu_equal,
+          "cpu_s": time.perf_counter() - t0,
+          "counters": {n: paths[f"tools_verify_{n}"] for n in ("se", "pe")}})
+    for name in ("se", "pe"):
+        c = paths[f"tools_verify_{name}"]
+        check(all(v["plain_calls"] == 0 for v in c.values()),
+              f"17c {name}: a plain version ran")
+        for k in ("seed_front", "row128_fetch", "vote", "banded_dp",
+                  "tb_dops"):
+            check(c[k]["launches"] > 0, f"17c {name}: {k} not launched")
+        check(runs[name]["subprocess_equal"], f"17c {name}: python -m "
+              "urmap_tpu_torch's body differs from cli.main's")
+    check(all(v["ok"] == v["reads"] > 0 for v in se.values()),
+          f"17c: single-end reads off their plants: {se}")
+    check(pe["mates"] == 3000 and pe["mates_placed"] == pe["mates"]
+          and pe["proper_mates"] == pe["mates"]
+          and pe["rescue_mates_placed"] == pe["rescue_mates"] > 0,
+          f"17c: pairs off their plants: {pe}")
+    check(cpu_equal, "17c: the card's single-end body differs from the "
+          "CPU's")
+
+    # (d) the GRCh38-scale corpus over the setup genome's index (phase 10)
+    cufi = os.path.join(work, "cli.ufi")
+    gdir = os.path.join(work, "g38")
+    os.makedirs(gdir, exist_ok=True)
+    t0 = time.perf_counter()
+    check(tool_stdout(make_g38_corpus.main,
+                      ["--index-cache", cufi, "--reads", str(N_G38),
+                       "--out-dir", gdir])[0] == 0, "17d: make_g38_corpus")
+    corpus_s = time.perf_counter() - t0
+    gdb = UfiIndex.load(cufi).seqdb
+    g38 = {}
+    for name, args in (("se", ["-map", os.path.join(gdir, "g38_se.fq")]),
+                       ("pe", ["-map", os.path.join(gdir, "g38_r1.fq"),
+                               "-reverse", os.path.join(gdir, "g38_r2.fq")])):
+        sam = os.path.join(gdir, f"{name}.sam")
+        reset_counters()
+        run = cli_map(dev, args + ["-ufi", cufi, "-samout", sam, "-quiet"])
+        paths[f"tools_g38_{name}"] = c = read_counters()
+        g38[name] = {**run, **score_g38(
+            sam, os.path.join(gdir, f"g38_{name}_truth.npy"), gdb.codes,
+            int(gdb.starts[0]), name == "pe")}
+        check(all(v["plain_calls"] == 0 for v in c.values()),
+              f"17d {name}: a plain version ran")
+    emit({"phase": "tools_g38", "gpu": smi, "corpus_s": corpus_s,
+          "min_correct_n_free": G38_MIN_CORRECT, **g38,
+          "counters": {n: paths[f"tools_g38_{n}"] for n in ("se", "pe")}})
+    for name in ("se", "pe"):
+        check(g38[name]["correct_frac_n_free"] >= G38_MIN_CORRECT,
+              f"17d {name}: correct over N-free reads "
+              f"{g38[name]['correct_frac_n_free']}")
+    emit({"phase": "tools_done", "seconds": time.perf_counter() - t_phase})
+    return paths
+
+
 def differing_rows(a, b) -> np.ndarray:
     """bool per row: any of FIELDS differs between two MapResults."""
     out = np.zeros(len(a.mapped), bool)
@@ -4066,6 +4407,7 @@ def main(argv=None) -> int:
     mesh = phase_mesh(dev, w, aligned, smi, work)
     phase_device_build(dev, w, smi, work)
     repeats = phase_repeats(dev, smi, work, args.seed)
+    tools = phase_tools(dev, work, smi)
 
     src = "urmap_tpu_torch/csrc/"
     tpu = "urmap_tpu/kernels/"
@@ -4135,8 +4477,9 @@ def main(argv=None) -> int:
     # paired run, semiglobal, shapes, the cli phase's -map runs: cli,
     # endclip, endclip_paired, secondpass, the tiered slice, the scale
     # run and the sharded runs of phase 14, this process's and the four
-    # ranks' summed, and phase 16's repeats, repeats_paired and
-    # veryfast), each read just after its run
+    # ranks' summed, phase 16's repeats, repeats_paired and veryfast, and
+    # phase 17's tools: the sweep, a2a_rounds (the slots mode), the
+    # corpora's -map runs), each read just after its run
     # with the counters set to 0 just before it, summed; by path under
     # launches_by_path.
     # banded_semiglobal's path is phase 8 (the winners re-aligned over
@@ -4147,7 +4490,8 @@ def main(argv=None) -> int:
     paths = {"slice": aligned["counts"], "row128": r128["counts"],
              "paired": pe_counts, "semiglobal": sg_counts,
              "shapes": sh_counts, **cli_counts, "tier": tier["counts"],
-             "scale": scale_counts, "mesh": mesh["counts"], **repeats}
+             "scale": scale_counts, "mesh": mesh["counts"], **repeats,
+             **tools}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []

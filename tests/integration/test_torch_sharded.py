@@ -83,7 +83,8 @@ def _rank_main(work: str) -> None:
         se_stats = {"comm": m.comm.snapshot(),
                     "dp": banded_dp.counter.plain_calls,
                     "clip": banded_dp.clip_counter.plain_calls,
-                    "slack": m.a2a_slack}
+                    "slack": m.a2a_slack, "sps": m._sps,
+                    "block": m._bs}
         if case["pairs"]:
             c1, l1, c2, l2 = spec["pairs"]
             res["pe"] = sh.ShardedPairedMapper(m).map_pair_codes(c1, l1, c2,
@@ -328,6 +329,54 @@ def test_a2a_overflow_rounds(world4):
     # every rank took the same rounds (the world all-reduce's condition)
     assert len({r["overflow"]["stats"]["comm"]["a2a_rounds"]
                 for r in ranks}) == 1
+
+
+def test_a2a_overflow_rounds_equal_round_model(world4):
+    """The round model of the port's a2a_rounds tool
+    (urmap_tpu_torch.tools.a2a_rounds.rounds_for_batch) against the
+    loop's own count: each batch of the overflow run's reads, padded and
+    packed as ShardedMapper.prepack does, split into the ranks' row
+    blocks, each block's seed slots from B3's slots mode on the CPU (its
+    forward rows, then their reverse complements: the rows the rank's
+    loop routes), with the rank's K (slack 0.3) and rows. The model's
+    rounds, summed over the batches, are the Comm counts of the run:
+    a2a_rounds over a2a_loops loops."""
+    import torch
+
+    from urmap_tpu_torch.genome_pack import pack_read_codes_host
+    from urmap_tpu_torch.kernels.seed_slots import seed_front
+    from urmap_tpu_torch.map.pair import _pad_block
+    from urmap_tpu_torch.tools.a2a_rounds import rounds_for_batch
+
+    prob, ranks = world4
+    stats = ranks[0]["overflow"]["stats"]
+    icfg, mcfg = prob["index"].config, _mcfg()
+    S, q, bs = 4, mcfg.seeds_per_read, stats["block"]
+    rps = bs // S
+    K = max(1, int(stats["slack"] * 2 * rps * q / S))
+    codes, lens = prob["reads"]["main"]
+    rounds = []
+    for b0 in range(0, len(codes), bs):
+        c, ln = _pad_block(codes[b0 : b0 + bs], lens[b0 : b0 + bs], bs,
+                           mcfg.max_read_len)
+        pk, nm = pack_read_codes_host(c)
+        slots, valid = [], []
+        for r in range(S):
+            blk = slice(r * rps, (r + 1) * rps)
+            *_, v, s = seed_front(torch.from_numpy(pk[blk]),
+                                  torch.from_numpy(nm[blk]),
+                                  torch.from_numpy(ln[blk]),
+                                  mcfg.max_read_len, k=icfg.k, q=q,
+                                  slot_bits=icfg.slot_bits, offsets=None)
+            slots.append(s.numpy())
+            valid.append(v.numpy())
+        rounds.append(rounds_for_batch(
+            np.concatenate(slots), np.concatenate(valid), sps=stats["sps"],
+            n_shards=S, rows_per_dev=2 * rps, K=K))
+    comm = stats["comm"]
+    assert len(rounds) == comm["a2a_loops"] == 3
+    assert sum(rounds) == comm["a2a_rounds"], (rounds, comm)
+    assert max(rounds) > 1
 
 
 def test_a2a_skewed_repeat_genome(world4):

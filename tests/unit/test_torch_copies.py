@@ -130,13 +130,24 @@ def test_constant_copy_equals_source(rel, name):
     assert block("urmap_tpu_torch") == theirs
 
 
-# functions the port's accuracy tool (urmap_tpu_torch/tools/accuracy.py)
-# copies from tools/accuracy.py, each under a comment line naming it;
-# simulate's alphabet import is its one changed line
+# functions and classes the port's tools (urmap_tpu_torch/tools/) copy,
+# each under a comment line naming its source: name → (source file,
+# the port's file); each copy is its source with the package name
+# replaced (simulate's and synth_reads' and synth_pairs' alphabet
+# imports)
 TOOL_COPIES = {
-    "simulate": ("    from urmap_tpu_torch import alphabet\n",
-                 "    from urmap_tpu import alphabet\n"),
-    "plant_repeat_families": None,
+    "simulate": ("tools/accuracy.py", "accuracy.py"),
+    "plant_repeat_families": ("tools/accuracy.py", "accuracy.py"),
+    "rounds_for_batch": ("tools/a2a_rounds.py", "a2a_rounds.py"),
+    "plant_indels": ("bench.py", "synth.py"),
+    "synth_reads": ("bench.py", "synth.py"),
+    "synth_pairs": ("bench.py", "synth.py"),
+    "write_fastq": ("bench.py", "synth.py"),
+    "random_seq": ("tests/utils.py", "synth.py"),
+    "make_seqdb": ("tests/utils.py", "synth.py"),
+    "PlantedRead": ("tests/utils.py", "synth.py"),
+    "plant_read": ("tests/utils.py", "synth.py"),
+    "plant_pair": ("tests/utils.py", "synth.py"),
 }
 
 
@@ -144,22 +155,22 @@ TOOL_COPIES = {
 def test_tool_copy_equals_source(name):
     import ast
 
-    def function(*parts):
+    def definition(*parts):
         text = _read(*parts).decode()
         node = next(n for n in ast.parse(text).body
-                    if isinstance(n, ast.FunctionDef) and n.name == name)
+                    if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                    and n.name == name)
+        first = min([node.lineno] + [d.lineno for d in node.decorator_list])
         lines = text.splitlines(keepends=True)
-        return "".join(lines[node.lineno - 1 : node.end_lineno]), \
-            lines[node.lineno - 2]
+        return "".join(lines[first - 1 : node.end_lineno]), lines[first - 2]
 
-    theirs, _ = function("tools", "accuracy.py")
-    ours, above = function("urmap_tpu_torch", "tools", "accuracy.py")
-    assert above.startswith(f"# tools/accuracy.py:{name}")
-    changed = TOOL_COPIES[name]
-    if changed is not None:
-        assert ours.count(changed[0]) == 1 and theirs.count(changed[1]) == 1
-        ours = ours.replace(*changed)
-    assert ours == theirs
+    source, ported = TOOL_COPIES[name]
+    theirs, _ = definition(*source.split("/"))
+    ours, above = definition("urmap_tpu_torch", "tools", ported)
+    assert above.startswith(f"# {source}:{name}")
+    assert ours.replace("urmap_tpu_torch", "urmap_tpu") == theirs
+    if "import alphabet" in theirs:
+        assert "from urmap_tpu_torch import alphabet" in ours
 
 
 def test_port_source_never_imports_the_reference_or_jax():

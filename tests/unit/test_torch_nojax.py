@@ -9,9 +9,12 @@ the default MapConfig, then a pair batch over a row128 table, then the command l
 (``cli.main`` -make_ufi and -map on the CPU, then -map on a sharded 1 x 1
 mesh; ``cli``, ``__main__``, ``dist.multihost`` and ``dist.sharded``
 imported by name), then the accuracy tool (``tools.accuracy.main`` with
-``--cpu`` at a tiny size). Afterwards no module named
-``urmap_tpu`` or ``urmap_tpu.*`` and no ``jax*`` may be loaded. The
-machine with the card has no JAX.
+``--cpu`` at a tiny size), then the other four tools imported by name
+and their read synthesis (``tools.synth``: ``make_seqdb``,
+``synth_reads``). Afterwards no module named ``urmap_tpu`` or
+``urmap_tpu.*``, no ``jax*``, and no ``bench``, ``tests*`` or
+``tools*`` of this repository may be loaded. The machine with the card
+has no JAX.
 """
 
 import os
@@ -118,9 +121,22 @@ with contextlib.redirect_stdout(out):
 roc = json.loads(out.getvalue().splitlines()[-1])
 assert roc["metric"] == "accuracy_roc" and len(roc["roc"]) == 7
 assert roc["roc"][0]["called"] > 48, roc
+# the other tools: their read synthesis (copies of bench.py's and
+# tests/utils.py's functions) runs without either file
+from urmap_tpu_torch.tools import (a2a_rounds, make_g38_corpus,
+                                   make_verify_corpus, suspect_sweep, synth)
+sdb = synth.make_seqdb(np.random.default_rng(2), [20_000, 10_000])
+assert sdb.num_seqs == 2 and int(sdb.lengths.sum()) == 30_000
+sc_, st_, ss_ = synth.synth_reads(np.random.default_rng(3), sdb, 32, 150,
+                                  indel_frac=0.1)
+assert sc_.shape == (32, 150) and sc_.max() <= 3
+first = sdb.codes[st_[ss_ == 0, None] + np.arange(24)[None, :]]
+assert (sc_[ss_ == 0, :24] == first).mean() > 0.9
+assert callable(a2a_rounds.rounds_for_batch) and callable(suspect_sweep.sweep)
+assert callable(make_g38_corpus.main) and callable(make_verify_corpus.main)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
-    m in ("jax", "jaxlib", "urmap_tpu")
-    or m.startswith(("jax.", "jaxlib.", "urmap_tpu."))))
+    m in ("jax", "jaxlib", "urmap_tpu", "bench", "tests", "tools")
+    or m.startswith(("jax.", "jaxlib.", "urmap_tpu.", "tests.", "tools."))))
 assert not bad, bad
 print("NOJAX-OK")
 """
