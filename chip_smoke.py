@@ -182,7 +182,12 @@ placed, and the single-end body equal to a CPU run's; (d)
 make_g38_corpus with 65,536 reads over phase 10's index of the setup
 genome, -map single-end and -reverse, scored by tools/check_sam_truth.py
 (run as a script), correct >= 0.99 over the reads whose planted span
-holds no genome N.
+holds no genome N; (e) bench_microvpu at the source's defaults (N
+65,536, W 128, 10 iterations): kernel B8 (csrc/micro_passes.cu, the
+Pallas kernel of tools/bench_microvpu.py) against the torch ops it
+fuses, the two rows' sums equal to a numpy uint32 computation, its
+launches counted under the path "microvpu". Phase 3 holds B8 against
+its plain version at [65,536, 128], [1,000, 127] and [3, 1].
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and
 the final {"ok": true, ...} line. Any failed check exits non-zero.
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -696,8 +701,9 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     case. ``library_ms`` times the nearest single PyTorch call for the
     three plain entries of B5 (an indexed ``unfold`` view,
     ``torch.gather``); it is None elsewhere: no single PyTorch call
-    computes the seed slots, the vote, the banded DP, the traceback DP
-    or a fused fetch (its plain version is ~40 to ~70 calls)."""
+    computes the seed slots, the vote, the banded DP, the traceback DP,
+    a fused fetch (its plain version is ~40 to ~70 calls) or B8's rounds
+    (some 120 calls)."""
     import torch
 
     from urmap_tpu_torch import _bits
@@ -972,6 +978,23 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
     row_case("row128_fetch_past_2^31", big, big_starts, P, 128)
     fetch_shapes["row128_fetch_past_2^31"]["starts_past_2^31"] = int(
         (big_starts >= (1 << 31)).sum())
+    # B8, the micro-benchmark's kernel (tools/bench_microvpu.py; no
+    # mapping path runs it), drawn last so that the cases above keep
+    # their inputs: the tool's [65,536, 128], then 1,000 rows (a tail no
+    # 2,048-row block covers) of an odd width, and three words. Per word
+    # and round two int32 ALU instructions (the shift and the xor; the
+    # multiply and the add fold into one IMAD); bytes: the words in and
+    # out. No single PyTorch call computes it.
+    from urmap_tpu_torch.kernels import micro
+
+    for name, shape in (("micro_passes", (65_536, 128)),
+                        ("micro_passes_1000x127", (1000, 127)),
+                        ("micro_passes_3x1", (3, 1))):
+        mx = put(rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)
+                 .view(np.int32))
+        cases[name] = (lambda mx=mx: (micro.passes(mx),),
+                       lambda mx=mx: (micro.plain_passes(mx),), (mx,),
+                       2 * micro.PASSES * mx.numel())
     recs = {}
     for name, (kern, plain, inputs, ops, *moved) in cases.items():
         got = kern()
@@ -4100,9 +4123,11 @@ def phase_tools(dev, work: str, smi: str) -> dict:
     the same bodies), scored against the truth TSVs, and the single-end
     body equal to cli.main(..., device="cpu")'s; (d) make_g38_corpus with
     N_G38 reads over phase 10's index of the setup genome, -map both,
-    scored by tools/check_sam_truth.py. Returns the counts of the paths
-    tools_sweep, tools_a2a, tools_verify_se, tools_verify_pe, tools_g38_se
-    and tools_g38_pe."""
+    scored by tools/check_sam_truth.py; (e) bench_microvpu at the
+    source's defaults (B8 against the torch ops it fuses), its sums equal
+    to each other and to micro_numpy's. Returns the counts of the paths
+    tools_sweep, tools_a2a, tools_verify_se, tools_verify_pe, tools_g38_se,
+    tools_g38_pe and microvpu."""
     import torch
 
     from urmap_tpu_torch import cli
@@ -4110,8 +4135,9 @@ def phase_tools(dev, work: str, smi: str) -> dict:
     from urmap_tpu_torch.index import UfiIndex
     from urmap_tpu_torch.index.store import save_prepared
     from urmap_tpu_torch.map import Mapper
-    from urmap_tpu_torch.tools import (a2a_rounds, make_g38_corpus,
-                                       make_verify_corpus, suspect_sweep)
+    from urmap_tpu_torch.tools import (a2a_rounds, bench_microvpu,
+                                       make_g38_corpus, make_verify_corpus,
+                                       suspect_sweep)
 
     t_phase = time.perf_counter()
     paths = {}
@@ -4301,8 +4327,44 @@ def phase_tools(dev, work: str, smi: str) -> dict:
         check(g38[name]["correct_frac_n_free"] >= G38_MIN_CORRECT,
               f"17d {name}: correct over N-free reads "
               f"{g38[name]['correct_frac_n_free']}")
+
+    # (e) the micro-benchmark at the source's defaults: B8 launched, the
+    # torch row's and the kernel row's last sums equal to numpy's
+    reset_counters()
+    t0 = time.perf_counter()
+    mv, lines = tool_stdout(bench_microvpu.run, [])
+    torch.cuda.synchronize(dev)
+    mv_s = time.perf_counter() - t0
+    paths["microvpu"] = counts = read_counters()
+    x = bench_microvpu.operands(mv["n"], mv["w"], "cpu")[mv["last_operand"]]
+    want = int(micro_numpy(x.numpy().view(np.uint32), mv["passes"])
+               .sum(dtype=np.uint64)) & 0xFFFF_FFFF
+    emit({"phase": "tools_microvpu", "gpu": smi, "seconds": mv_s,
+          "lines": lines, **mv, "numpy_sum": want,
+          "counters": counts["micro_passes"]})
+    check(len(lines) == 5 and lines[4].startswith("marginal: "),
+          f"17e: the tool printed {lines}")
+    check(mv["sums"]["torch"] == mv["sums"]["kernel"] == want,
+          f"17e: sums {mv['sums']}, numpy {want}")
+    check(counts["micro_passes"]["launches"] == 2 + mv["iters"],
+          f"17e: micro_passes launches {counts['micro_passes']}")
+    check(all(c["plain_calls"] == 0 for c in counts.values())
+          and all(c["launches"] == 0 for k, c in counts.items()
+                  if k != "micro_passes"),
+          f"17e: another kernel or a plain version ran: {counts}")
     emit({"phase": "tools_done", "seconds": time.perf_counter() - t_phase})
     return paths
+
+
+def micro_numpy(x: np.ndarray, passes: int) -> np.ndarray:
+    """tools/bench_microvpu.py's ``body`` in numpy uint32 (every step
+    wraps modulo 2^32): phase 17(e)'s reference for the tool's sums."""
+    h = np.array(x, np.uint32)
+    for i in range(passes):
+        h *= np.uint32(0x9E3779B1 + 2 * i + 1)
+        h ^= h >> np.uint32(15)
+        h += np.uint32(0x85EBCA6B)
+    return h
 
 
 def differing_rows(a, b) -> np.ndarray:
@@ -4413,7 +4475,8 @@ def main(argv=None) -> int:
     tpu = "urmap_tpu/kernels/"
     w_dp = 2 * (-(-(L_MAX + 2 * HW) // 16) + 1)
     w_rescue = 2 * (-(-RESCUE_W // 16) + 1)
-    # name → (source, TPU kernel)
+    # name → (source, TPU kernel: under urmap_tpu/kernels/ unless a path
+    # is given)
     sources = {
         "seed_front": ("seed_slots.cu", "seed_slots.py:192"),
         "seed_front_slots": ("seed_slots.cu", "seed_slots.py:192"),
@@ -4434,6 +4497,7 @@ def main(argv=None) -> int:
         "banded_semiglobal_clip": ("banded_dp.cu", "banded_dp.py:199"),
         "rotate_narrow": ("lane_rotate.cu", "lane_rotate.py:120"),
         "tb_bits": ("tb_dp.cu", "tb_dp.py:227"),
+        "micro_passes": ("micro_passes.cu", "tools/bench_microvpu.py:73"),
     }
     # entries that share a counter, told apart by the width it records
     by_width = {
@@ -4464,7 +4528,8 @@ def main(argv=None) -> int:
         "tb_dops": ["tb_dops_n128", "tb_dops_n16384", "tb_dops_hw12",
                     "tb_dops_hw24", "tb_dops_hw31", "tb_dops_L700",
                     "tb_dops_L2000"],
-        "tb_bits": ["tb_bits_hw12", "tb_bits_hw24", "tb_bits_hw31"]}
+        "tb_bits": ["tb_bits_hw12", "tb_bits_hw24", "tb_bits_hw31"],
+        "micro_passes": ["micro_passes_1000x127", "micro_passes_3x1"]}
 
     def launches_in(counts: dict, name: str) -> int:
         """Launches of a kernels-line entry in one path's counters."""
@@ -4479,7 +4544,8 @@ def main(argv=None) -> int:
     # run and the sharded runs of phase 14, this process's and the four
     # ranks' summed, phase 16's repeats, repeats_paired and veryfast, and
     # phase 17's tools: the sweep, a2a_rounds (the slots mode), the
-    # corpora's -map runs), each read just after its run
+    # corpora's -map runs, bench_microvpu, the one path of B8), each read
+    # just after its run
     # with the counters set to 0 just before it, summed; by path under
     # launches_by_path.
     # banded_semiglobal's path is phase 8 (the winners re-aligned over
@@ -4499,7 +4565,8 @@ def main(argv=None) -> int:
         by_path = {p: launches_in(c, name) for p, c in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": src + cu,
-            "replaces": tpu + py, "launches": sum(by_path.values()),
+            "replaces": py if "/" in py else tpu + py,
+            "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "phase3_launches": launches_in(phase3, name),
             **{k: recs[name][k] for k in keys},
@@ -4514,6 +4581,10 @@ def main(argv=None) -> int:
           f"a kernel of the paths was never launched: {kernels}")
     check(all(k["launches"] == 0 for k in kernels if k["name"] in off_path),
           f"a kernel off the paths was launched there: {kernels}")
+    b8 = next(k for k in kernels if k["name"] == "micro_passes")
+    check(b8["launches_by_path"]["microvpu"] > 0
+          and b8["launches"] == b8["launches_by_path"]["microvpu"],
+          f"micro_passes launched outside its tool: {b8}")
     emit({"kernels": kernels,
           "mesh": {k: mesh[k] for k in ("a2a_loops", "a2a_rounds")},
           "tier_rounds": {
@@ -4524,7 +4595,9 @@ def main(argv=None) -> int:
           "note": "row128_window_fetch (the classic layout's fetch), "
                   "banded_semiglobal_clip, rotate_narrow and tb_bits have "
                   "no caller on these paths: their launches there are 0, "
-                  "phase 3 held each against its plain version"})
+                  "phase 3 held each against its plain version; "
+                  "micro_passes (B8) runs on the microvpu path (phase "
+                  "17e) alone"})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -173,6 +173,18 @@ def test_tool_copy_equals_source(name):
         assert "from urmap_tpu_torch import alphabet" in ours
 
 
+def test_microvpu_passes_equals_source():
+    """B8's round count is tools/bench_microvpu.py's ``PASSES`` (line
+    31), copied under a comment line naming it."""
+    src = _read("tools", "bench_microvpu.py").decode().splitlines()
+    assert src[30] == "PASSES = 24"
+    ours = _read("urmap_tpu_torch", "kernels", "micro.py").decode() \
+        .splitlines()
+    i = ours.index(src[30])
+    assert ours[i - 1] == "# tools/bench_microvpu.py:PASSES"
+    assert sum(ln.startswith("PASSES = ") for ln in ours) == 1
+
+
 def test_port_source_never_imports_the_reference_or_jax():
     """No ``import``/``from`` of urmap_tpu or jax in the port's Python
     sources or in chip_smoke.py (docstrings and comments included: a

@@ -1139,3 +1139,28 @@ def test_device_build_on_the_card_matches_host(cuda_device, tmp_path, k,
                                           3_000_000_000, k, bits)
         for a, b in zip(on_card, on_cpu):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(1000, 127), (3, 1), (4096, 128)])
+def test_micro_passes_kernel_matches_plain(cuda_device, shape):
+    """B8 (csrc/micro_passes.cu) against its plain version: a tail of rows
+    no 2,048-row block covers at an odd width, three words, and whole
+    16-byte vectors; then on a view whose base is not 16-byte aligned
+    (the word-by-word loads)."""
+    from urmap_tpu_torch.kernels import micro
+
+    x = np.random.default_rng(12).integers(0, 1 << 32, size=shape,
+                                           dtype=np.uint32).view(np.int32)
+    x = torch.from_numpy(x).to(cuda_device)
+    micro.counter.reset()
+    got = micro.passes(x)
+    torch.cuda.synchronize()
+    assert (micro.counter.launches, micro.counter.plain_calls) == (1, 0)
+    assert got.dtype == torch.int32 and torch.equal(got,
+                                                    micro.plain_passes(x))
+    flat = x.reshape(-1)
+    if flat.numel() > 1:
+        tail = flat[1:].reshape(1, -1)      # base one word past alignment
+        assert torch.equal(micro.passes(tail), micro.plain_passes(tail))
+    with pytest.raises(ValueError, match="passes"):
+        torch.ops.urmap.micro_passes(x, -1)

@@ -11,8 +11,10 @@ mesh; ``cli``, ``__main__``, ``dist.multihost`` and ``dist.sharded``
 imported by name), then the accuracy tool (``tools.accuracy.main`` with
 ``--cpu`` at a tiny size), then the other four tools imported by name
 and their read synthesis (``tools.synth``: ``make_seqdb``,
-``synth_reads``). Afterwards no module named ``urmap_tpu`` or
-``urmap_tpu.*``, no ``jax*``, and no ``bench``, ``tests*`` or
+``synth_reads``), then kernel B8's plain version
+(``kernels.micro.plain_passes`` against numpy) and its tool
+(``tools.bench_microvpu``) by name. Afterwards no module named
+``urmap_tpu`` or ``urmap_tpu.*``, no ``jax*``, and no ``bench``, ``tests*`` or
 ``tools*`` of this repository may be loaded. The machine with the card
 has no JAX.
 """
@@ -134,6 +136,19 @@ first = sdb.codes[st_[ss_ == 0, None] + np.arange(24)[None, :]]
 assert (sc_[ss_ == 0, :24] == first).mean() > 0.9
 assert callable(a2a_rounds.rounds_for_batch) and callable(suspect_sweep.sweep)
 assert callable(make_g38_corpus.main) and callable(make_verify_corpus.main)
+# kernel B8's plain version and its tool, by name
+import torch
+from urmap_tpu_torch.kernels import micro
+from urmap_tpu_torch.tools import bench_microvpu
+w = np.arange(12, dtype=np.uint32).reshape(3, 4) * np.uint32(0x9E3779B9)
+h = w.copy()
+for i in range(micro.PASSES):
+    h *= np.uint32(0x9E3779B1 + 2 * i + 1)
+    h ^= h >> np.uint32(15)
+    h += np.uint32(0x85EBCA6B)
+got = micro.plain_passes(torch.from_numpy(w.view(np.int32)))
+assert (got.numpy().view(np.uint32) == h).all()
+assert callable(bench_microvpu.run) and callable(bench_microvpu.main)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("jax", "jaxlib", "urmap_tpu", "bench", "tests", "tools")
     or m.startswith(("jax.", "jaxlib.", "urmap_tpu.", "tests.", "tools."))))

@@ -18,6 +18,7 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
+#include <cstdint>
 #include <tuple>
 
 #include "urmap_kernels.h"
@@ -382,6 +383,21 @@ Tensor window_mismatches(const Tensor& ginter, int64_t base_off,
   return out;
 }
 
+// B8 → int32 [N, W]: `passes` rounds of the micro-benchmark's mix on every
+// word (uint32 bits in int32).
+Tensor micro_passes(const Tensor& x, int64_t passes) {
+  require(x, "x", at::kInt, 2);
+  TORCH_CHECK_VALUE(passes >= 0 && passes <= INT32_MAX,
+                    "micro_passes: passes ", passes, " out of [0, 2^31)");
+  const c10::cuda::CUDAGuard guard(x.device());
+  Tensor out = at::empty(x.sizes(), x.options());
+  launched(urmap_micro_passes(x.data_ptr(), out.data_ptr(),
+                              (long long)x.numel(), (int)passes,
+                              stream_of(x)),
+           "urmap_micro_passes");
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(urmap, m) {
@@ -410,6 +426,7 @@ TORCH_LIBRARY(urmap, m) {
         "int length) -> Tensor");
   m.def("window_mismatches(Tensor ginter, int base_off, Tensor starts, "
         "Tensor rpacked, Tensor rnplane, Tensor lengths) -> Tensor");
+  m.def("micro_passes(Tensor x, int passes) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(urmap, CUDA, m) {
@@ -424,4 +441,5 @@ TORCH_LIBRARY_IMPL(urmap, CUDA, m) {
   m.impl("rotate_narrow", &rotate_narrow);
   m.impl("window_codes", &window_codes);
   m.impl("window_mismatches", &window_mismatches);
+  m.impl("micro_passes", &micro_passes);
 }

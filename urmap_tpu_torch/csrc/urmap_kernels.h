@@ -62,6 +62,10 @@ int urmap_window_mismatches(const void* table, long long M,
                             int starts64, const void* rp, const void* rn,
                             const void* lengths, void* out, long long n,
                             int nw, void* stream);
+// B8, micro_passes.cu: `passes` rounds of the tools/bench_microvpu.py mix
+// on each of n words, x → out
+int urmap_micro_passes(const void* x, void* out, long long n, int passes,
+                       void* stream);
 
 #ifdef __cplusplus
 }

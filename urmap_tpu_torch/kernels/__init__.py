@@ -91,14 +91,15 @@ tier_rounds = Rounds()
 def counters() -> list[Counter]:
     """Every kernel's counter, in main-path order (the seed front's
     slots mode beside the front: the sharded routes run it in the
-    front's place). The last four have
+    front's place). The last five have
     no caller on the mapping path: B1' in both modes (the byte-genome
     DP; the mapper aligns from the packed genome), the literal rotate of
-    B5 (the fetch entries never gather whole rows) and B7's bits mode.
+    B5 (the fetch entries never gather whole rows), B7's bits mode and
+    B8 (the micro-benchmark's kernel, tools/bench_microvpu.py's alone).
     B5's plain window entry serves the classic layout's positions only:
     no launch on the aligned and row128 layouts."""
-    from urmap_tpu_torch.kernels import (banded_dp, lane_rotate, seed_slots,
-                                         tb_dp, vote)
+    from urmap_tpu_torch.kernels import (banded_dp, lane_rotate, micro,
+                                         seed_slots, tb_dp, vote)
 
     return [seed_slots.counter, seed_slots.slots_counter,
             lane_rotate.fetch_counter, vote.counter,
@@ -106,14 +107,15 @@ def counters() -> list[Counter]:
             banded_dp.counter, banded_dp.clip_counter, tb_dp.counter,
             lane_rotate.window_counter, banded_dp.semiglobal_counter,
             banded_dp.semiglobal_clip_counter, lane_rotate.rotate_counter,
-            tb_dp.bits_counter]
+            tb_dp.bits_counter, micro.counter]
 
 
 # counters of kernels that the aligned and row128 mapping paths on one
 # card never launch (the slots mode of the seed front runs on the sharded
-# routes only, dist/sharded.py)
+# routes only, dist/sharded.py; B8 runs in its micro-benchmark tool only)
 OFF_PATH = ("seed_front_slots", "row128_window_fetch", "banded_semiglobal",
-            "banded_semiglobal_clip", "rotate_narrow", "tb_bits")
+            "banded_semiglobal_clip", "rotate_narrow", "tb_bits",
+            "micro_passes")
 # under end_clip every DP runs in clip mode (the clip-rescue lane is off)
 # and the device traceback is off (map.pipeline.tb_enabled)
 OFF_PATH_END_CLIP = OFF_PATH + ("banded_dp", "tb_dops")
