@@ -15,6 +15,7 @@ under the same sys.argv.
 
 import filecmp
 import gzip
+import json
 import os
 import subprocess
 import sys
@@ -336,7 +337,28 @@ def test_profile_writes_a_trace_and_logs(corpus, monkeypatch):
     traces = [n for n in os.listdir(prof) if n.endswith(".json")]
     assert traces and os.path.getsize(prof / traces[0]) > 0
     assert "200 reads" in open(log).read()
-    assert len(open(met).read().splitlines()) == 4       # one a batch
+    lines = [json.loads(ln) for ln in open(met).read().splitlines()]
+    assert len(lines) == 4                               # one a batch
+    # both turn the program's spans on: the trace holds them beside
+    # torch's operators, on the dispatch thread and the workers
+    with open(prof / traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"urmap.start_batch", "urmap.sync[upload]", "urmap.sync[download]",
+            "urmap.finish_batch", "urmap.unpack", "urmap.second_pass",
+            "urmap.cigars", "urmap.cigars.compose", "urmap.sam"} <= names
+    span_tids = {e["tid"] for e in events
+                 if e.get("name") in ("urmap.start_batch", "urmap.sam")}
+    assert len(span_tids) >= 2
+    # each metrics line: its batch's span totals (ms) and counters
+    for ln in lines:
+        assert ln["span_ms"]["urmap.start_batch"] > 0
+        assert ln["span_ms"]["urmap.cigars"] > 0
+        assert ln["span_ms"]["urmap.sam"] > 0
+        assert ln["counts"]["host_syncs"] >= 4
+        assert ln["counts"]["rows.replay"] + ln["counts"].get(
+            "rows.host_dp", 0) + ln["counts"].get("rows.clip_dp", 0) \
+            == ln["gapped"]
 
 
 def test_version_of_python_m_matches_urmap_tpu():

@@ -22,8 +22,18 @@ COPIES = ["config.py", "alphabet.py", "io/__init__.py", "io/fasta.py",
 
 # copy text → source text, for the lines that may differ: the port
 # builds codecs.cpp into build/urmap_tpu_torch/ at the repository root,
-# the reference beside its source
+# the reference beside its source; the port's SAM formatters are spans
+# of their batch (a block appended to the copy, the bodies untouched)
 ALLOWED = {
+    "io/sam_native.py": [
+        ("\n\n# the port's spans (urmap_tpu/utils/trace.py): each formatter"
+         " call\n# is the span urmap.sam of its result's batch\n"
+         "from urmap_tpu.utils import trace as _trace  # noqa: E402\n\n"
+         'format_single_end = _trace.spanned("urmap.sam", 1)'
+         "(format_single_end)\n"
+         'format_paired = _trace.spanned("urmap.sam", 2)(format_paired)\n',
+         ""),
+    ],
     "io/native/__init__.py": [
         ("and cached in\nbuild/urmap_tpu/ at the repository root,\n",
          "and cached next to the source,\n"),

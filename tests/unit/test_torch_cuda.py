@@ -1164,3 +1164,75 @@ def test_micro_passes_kernel_matches_plain(cuda_device, shape):
         assert torch.equal(micro.passes(tail), micro.plain_passes(tail))
     with pytest.raises(ValueError, match="passes"):
         torch.ops.urmap.micro_passes(x, -1)
+
+
+@pytest.mark.parametrize("path", ["single", "paired", "clip"])
+def test_every_card_sync_lies_in_a_sync_span(cuda_device, path):
+    """One batch under set_sync_debug_mode("warn"), tracing on: each
+    synchronizing operation the card reports warns inside its own
+    ``urmap.sync`` span, and ``host_syncs`` counts them all (single-end,
+    pairs with rescue-only mates, single-end with adapter tails for the
+    clip-rescue lane)."""
+    import warnings
+
+    from urmap_tpu_torch.map.pair import PairedMapper
+    from urmap_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(12)
+    db = make_seqdb(rng, [300_000])
+    mapper = Mapper(build_index(db, backend="host"),
+                    MapConfig(batch_size=512), device=cuda_device)
+    if path == "paired":
+        pairs = [plant_pair(rng, db, length=150,
+                            frag=int(rng.integers(250, 600)),
+                            snp_every=(15 if i % 4 == 0 else None))
+                 for i in range(256)]
+        c1 = np.stack([p[0].codes for p in pairs])
+        c2 = np.stack([p[1].codes for p in pairs])
+        ln = np.full(len(pairs), 150, np.int32)
+        pm = PairedMapper(mapper)
+
+        def one():
+            pm.finish_batch(pm.start_batch(c1, ln, c2, ln), ln, ln)
+    else:
+        reads = [plant_read(rng, db, n_snps=int(rng.integers(0, 6)),
+                            ins=int(rng.integers(0, 2)) * 4)
+                 for _ in range(512)]
+        codes = np.stack([r.codes for r in reads])
+        if path == "clip":
+            codes[::8, 85:] = rng.integers(0, 4, (64, 65))
+        ln = np.full(len(reads), 150, np.int32)
+
+        def one():
+            mapper.finish_batch(mapper.start_batch(codes, ln), ln)
+    one()                                   # builds and warms up
+    caught = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" in str(message):
+            stack = trace._state().stack
+            caught.append(stack[-1].id if stack
+                          and stack[-1].name == "urmap.sync" else
+                          f"{filename}:{lineno}")
+
+    trace.drain()
+    trace.enable()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                one()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        trace.disable()
+    recs = trace.drain()
+    syncs = sorted(r.id for r in recs if isinstance(r, trace.Span)
+                   and r.name == "urmap.sync")
+    assert [c for c in caught if isinstance(c, str)] == []
+    assert sorted(caught) == syncs
+    assert sum(r.n for r in recs if isinstance(r, trace.Count)
+               and r.name == "host_syncs") == len(caught) > 0

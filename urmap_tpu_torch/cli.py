@@ -31,7 +31,7 @@ import numpy as np
 
 from urmap_tpu_torch import __version__
 from urmap_tpu_torch.config import IndexConfig, MapConfig
-from urmap_tpu_torch.utils import MetricsLogger, Progress
+from urmap_tpu_torch.utils import MetricsLogger, Progress, trace
 
 USAGE = """urmap-tpu v{v} — short-read mapper (PyTorch + CUDA port)
 
@@ -320,8 +320,9 @@ def _make_mapper(opts: dict, index, mcfg, quiet: bool, device,
 
 
 def _profile(opts: dict, device):
-    """-profile DIR: torch.profiler over the map (CPU activity, and the
-    card's on CUDA), written as a Chrome trace into DIR."""
+    """-profile DIR: torch.profiler over the map (CPU activity of every
+    thread, with the program's spans, and the card's on CUDA), written
+    as a Chrome trace into DIR."""
     import contextlib
 
     if "profile" not in opts:
@@ -340,7 +341,10 @@ def _profile(opts: dict, device):
         prof.export_chrome_trace(os.path.join(
             out, f"urmap_map_{os.getpid()}.trace.json"))
 
-    return torch.profiler.profile(activities=acts, on_trace_ready=save)
+    return torch.profiler.profile(
+        activities=acts, on_trace_ready=save,
+        experimental_config=torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True))
 
 
 def cmd_map(opts: dict, device="cuda") -> int:
@@ -407,6 +411,10 @@ def cmd_map(opts: dict, device="cuda") -> int:
     # rows it owns (ShardedMapper.finish_batch_local)
     mesh_local_rows = isinstance(mapper, ShardedMapper) and nproc > 1
     metrics = MetricsLogger(str(opts["metrics"]) if "metrics" in opts else None)
+    # -profile and -metrics turn the program's spans and counters on: the
+    # trace shows them, and each metrics line gets its batch's totals
+    traced = "profile" in opts or "metrics" in opts
+    batch_totals = trace.BatchTotals() if traced else None
     progress = Progress("reads") if not quiet else None
     cmdline = "urmap-tpu " + " ".join(sys.argv[1:])
     resume = bool(opts.get("resume"))
@@ -539,7 +547,8 @@ def cmd_map(opts: dict, device="cuda") -> int:
                      + int(res.m2.mapped.sum()),
                      "proper_pairs": int(res.proper.sum()),
                      "gapped": int(res.m1.gapped.sum())
-                     + int(res.m2.gapped.sum())}
+                     + int(res.m2.gapped.sum()),
+                     "batch": trace.batch_of(res)}
             if native:
                 c1, e1, sp1 = _cig3(cigars_nm_blob(
                     genome, fwd.codes, res.m1, mapper.sc,
@@ -561,7 +570,8 @@ def cmd_map(opts: dict, device="cuda") -> int:
             _selfcheck_batch(batch.codes, res)
         stats = {"reads": len(batch), "mapped": int(res.mapped.sum()),
                  "gapped": int(res.gapped.sum()),
-                 "mapq_ge20": int((res.mapq >= 20).sum())}
+                 "mapq_ge20": int((res.mapq >= 20).sum()),
+                 "batch": trace.batch_of(res)}
         if native:
             cig, nm, _span = _cig3(cigars_nm_blob(
                 genome, batch.codes, res, mapper.sc,
@@ -584,6 +594,9 @@ def cmd_map(opts: dict, device="cuda") -> int:
 
     def write_one(out):
         data, stats = out
+        batch = stats.pop("batch")
+        if batch_totals is not None:
+            stats.update(batch_totals.take(batch))
         writer.append_batch(data, stats["reads"])
         state["reads"] += stats["reads"]
         state["mapped"] += stats["mapped"]
@@ -607,9 +620,16 @@ def cmd_map(opts: dict, device="cuda") -> int:
     from urmap_tpu_torch.utils.stream import run_stream
 
     inflight = int(str(opts.get("inflight", 2)))
-    with _profile(opts, device):
-        run_stream(my_batches(), start_one, sync_one, format_one, write_one,
-                   inflight=inflight, workers=n_threads)
+    if traced:
+        trace.enable()
+    try:
+        with _profile(opts, device):
+            run_stream(my_batches(), start_one, sync_one, format_one,
+                       write_one, inflight=inflight, workers=n_threads)
+    finally:
+        if traced:
+            trace.disable()
+            trace.drain()
     n_reads, n_mapped = state["reads"], state["mapped"]
     writer.close()
 

@@ -195,3 +195,11 @@ def format_paired(b1, b2, pres, cig1, nm1, span1, cig2, nm2, span2,
     blob2, off2 = _concat_cigars(cig2)
     return (_run_formatter(b1, f1, blob1, off1, seqdb)
             + _run_formatter(b2, f2, blob2, off2, seqdb))
+
+
+# the port's spans (urmap_tpu_torch/utils/trace.py): each formatter call
+# is the span urmap.sam of its result's batch
+from urmap_tpu_torch.utils import trace as _trace  # noqa: E402
+
+format_single_end = _trace.spanned("urmap.sam", 1)(format_single_end)
+format_paired = _trace.spanned("urmap.sam", 2)(format_paired)

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import threading
 
+from urmap_tpu_torch.utils import trace
+
 _scope = threading.local()
 
 
@@ -68,9 +70,13 @@ class Counter:
 class Rounds:
     """Calls of a loop on the mapping path that reads its condition
     back from the device each round, and the rounds they ran. Every
-    thread's calls count here."""
+    thread's calls count here; while tracing is on (utils/trace.py) each
+    call's rounds also count as ``rounds.<name>`` of its batch. ``add``
+    is the one counting call at each loop."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
+        self._counter = f"rounds.{name}"
         self._lock = threading.Lock()
         self.reset()
 
@@ -82,10 +88,19 @@ class Rounds:
         with self._lock:
             self.calls += 1
             self.rounds += rounds
+        trace.count(self._counter, rounds)
 
 
-# the tiered gather's overflow rounds (map.seed.gather_runs ``tier``)
-tier_rounds = Rounds()
+# the round loops of the mapping path: the capacity-compacted ungapped
+# verify, the banded-DP buckets, the clip-rescue lane
+# (map.pipeline.candidates_batch_device), the mate rescue
+# (map.pair.map_pairs_device) and the tiered gather's overflow
+# (map.seed.gather_runs ``tier``)
+verify_rounds = Rounds("verify")
+dp_rounds = Rounds("dp")
+clip_rounds = Rounds("clip")
+rescue_rounds = Rounds("rescue")
+tier_rounds = Rounds("tier")
 
 
 def counters() -> list[Counter]:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from urmap_tpu_torch.config import ScoreConfig
+from urmap_tpu_torch.utils import trace
 
 
 # urmap_tpu/map/cigar.py:_finish_ops, decode_tb_row (the host decoder
@@ -349,13 +350,30 @@ def cigars_nm_blob(genome: np.ndarray, raw_codes: np.ndarray, result,
     int64[n+1], nm int32[n], span int32[n]) for the native SAM
     formatter, or None when the native library is unavailable. Takes
     the as-sequenced codes and reverse-complements only the gapped rows.
+
+    Traced (utils/trace.py) as ``urmap.cigars`` of the result's batch,
+    with the children ``.replay`` (the device records decoded),
+    ``.host_dp`` and ``.clip_dp`` (the host DP of the rows left, plain
+    and clip mode), ``.interleave`` and ``.compose``; the counters
+    ``rows.replay``, ``rows.replay_failed`` (decoded, then sent to the
+    host DP), ``rows.host_dp`` and ``rows.clip_dp`` (each gapped row is
+    in one of replay, host_dp, clip_dp).
     """
     from urmap_tpu_torch.io import native
 
     lib = native.lib()
     if lib is None:
         return None
+    with trace.span("urmap.cigars", trace.batch_of(result)):
+        return _cigars_nm_blob(lib, genome, raw_codes, result, sc,
+                               raw_lengths, clip_open, clip_rows)
+
+
+def _cigars_nm_blob(lib, genome, raw_codes, result, sc, raw_lengths,
+                    clip_open, clip_rows):
     import ctypes
+
+    from urmap_tpu_torch.io import native
 
     n = len(result.mapped)
     L = result.lengths.astype(np.int64)
@@ -380,91 +398,100 @@ def cigars_nm_blob(genome: np.ndarray, raw_codes: np.ndarray, result,
             # band-escaped/overflow rows fall through to the DP below
             use, ti = _tb_select(result, rows, clip_rows)
             if use.size:
-                blob, off, nm_u, span_u, okd = _tb_decode_rows(
-                    genome, raw_codes, result, use, ti)
-                good = np.nonzero(okd)[0]
-                if good.size:
-                    guse = use[good]
-                    nm[guse] = nm_u[good]
-                    span[guse] = span_u[good]
-                    if good.size == use.size:
-                        gblob, goff = blob, off
-                    else:
-                        lnb = np.diff(off)
-                        goff = np.zeros(good.size + 1, np.int64)
-                        np.cumsum(lnb[good], out=goff[1:])
-                        gblob = b"".join(blob[off[g] : off[g + 1]]
-                                         for g in good)
-                    sel = np.searchsorted(rows, guse)
-                    parts.append((sel, gblob, goff))
-                    handled[sel] = True
+                with trace.span("urmap.cigars.replay"):
+                    blob, off, nm_u, span_u, okd = _tb_decode_rows(
+                        genome, raw_codes, result, use, ti)
+                    good = np.nonzero(okd)[0]
+                    trace.count("rows.replay", int(good.size))
+                    trace.count("rows.replay_failed",
+                                int(use.size - good.size))
+                    if good.size:
+                        guse = use[good]
+                        nm[guse] = nm_u[good]
+                        span[guse] = span_u[good]
+                        if good.size == use.size:
+                            gblob, goff = blob, off
+                        else:
+                            lnb = np.diff(off)
+                            goff = np.zeros(good.size + 1, np.int64)
+                            np.cumsum(lnb[good], out=goff[1:])
+                            gblob = b"".join(blob[off[g] : off[g + 1]]
+                                             for g in good)
+                        sel = np.searchsorted(rows, guse)
+                        parts.append((sel, gblob, goff))
+                        handled[sel] = True
         groups = _clip_groups(result, sc, clip_open, clip_rows,
                               rows=rows[~handled])
         for grows, co in groups:
             if grows.size == 0:
                 continue
-            lens = np.asarray(result.lengths)[grows]
-            sub = strand_codes_subset(raw_codes[grows],
-                                      np.asarray(result.strand)[grows],
-                                      lens)
-            nat = traceback_batch_native(
-                genome, np.asarray(result.pos)[grows], sub, lens, sc,
-                raw=True, clip_open=co)
-            if nat is None:
-                return None
-            gblob, goff, nms_, scores_, spans_ = nat
-            dev = np.asarray(result.score)[grows]
-            # clip mode: the host DP at POS is a superset of the banded
-            # device paths, so >=
-            bad = np.nonzero((scores_ < dev) if co is not None
-                             else (scores_ != dev))[0]
-            if bad.size:  # pragma: no cover - consistency
-                raise AssertionError(
-                    f"native traceback score mismatch at rows "
-                    f"{grows[bad[:5]]}")
-            nm[grows] = nms_
-            span[grows] = spans_
-            sel = np.searchsorted(rows, grows)
-            parts.append((sel, gblob, goff))
+            path = "host_dp" if co is None else "clip_dp"
+            with trace.span(f"urmap.cigars.{path}"):
+                trace.count(f"rows.{path}", int(grows.size))
+                lens = np.asarray(result.lengths)[grows]
+                sub = strand_codes_subset(raw_codes[grows],
+                                          np.asarray(result.strand)[grows],
+                                          lens)
+                nat = traceback_batch_native(
+                    genome, np.asarray(result.pos)[grows], sub, lens, sc,
+                    raw=True, clip_open=co)
+                if nat is None:
+                    return None
+                gblob, goff, nms_, scores_, spans_ = nat
+                dev = np.asarray(result.score)[grows]
+                # clip mode: the host DP at POS is a superset of the
+                # banded device paths, so >=
+                bad = np.nonzero((scores_ < dev) if co is not None
+                                 else (scores_ != dev))[0]
+                if bad.size:  # pragma: no cover - consistency
+                    raise AssertionError(
+                        f"native traceback score mismatch at rows "
+                        f"{grows[bad[:5]]}")
+                nm[grows] = nms_
+                span[grows] = spans_
+                sel = np.searchsorted(rows, grows)
+                parts.append((sel, gblob, goff))
         if len(parts) == 1 and parts[0][0].size == rows.size:
             _, tcig_blob, tcig_off = parts[0]
         else:
-            # interleave the groups' blobs back into gapped-row order
-            rowlen = np.zeros(rows.size, np.int64)
-            for sel, gblob, goff in parts:
-                rowlen[sel] = np.diff(goff)
-            tcig_off = np.zeros(rows.size + 1, np.int64)
-            np.cumsum(rowlen, out=tcig_off[1:])
-            buf = bytearray(int(tcig_off[-1]))
-            for sel, gblob, goff in parts:
-                for j, r_ in enumerate(sel):
-                    buf[tcig_off[r_] : tcig_off[r_ + 1]] = \
-                        gblob[goff[j] : goff[j + 1]]
-            tcig_blob = bytes(buf)
+            with trace.span("urmap.cigars.interleave"):
+                # interleave the groups' blobs back into gapped-row order
+                rowlen = np.zeros(rows.size, np.int64)
+                for sel, gblob, goff in parts:
+                    rowlen[sel] = np.diff(goff)
+                tcig_off = np.zeros(rows.size + 1, np.int64)
+                np.cumsum(rowlen, out=tcig_off[1:])
+                buf = bytearray(int(tcig_off[-1]))
+                for sel, gblob, goff in parts:
+                    for j, r_ in enumerate(sel):
+                        buf[tcig_off[r_] : tcig_off[r_ + 1]] = \
+                            gblob[goff[j] : goff[j + 1]]
+                tcig_blob = bytes(buf)
 
-    mg = np.zeros(n, np.uint8)
-    mg[m_only] = 1
-    mg[gapped] = 2
-    lens32 = np.ascontiguousarray(result.lengths, dtype=np.int32)
-    strand32 = np.ascontiguousarray(result.strand, dtype=np.int32)
-    raw32 = (None if raw_lengths is None
-             else np.ascontiguousarray(raw_lengths, dtype=np.int32))
-    cap = 48 * n + len(tcig_blob) + 64
-    while True:
-        out = np.empty(cap, np.uint8)
-        off = np.empty(n + 1, np.int64)
-        wrote = lib.urmap_compose_cigars(
-            n, lens32.ctypes.data_as(native.p_i32),
-            raw32.ctypes.data_as(native.p_i32) if raw32 is not None
-            else None,
-            mg.ctypes.data_as(native.p_u8),
-            strand32.ctypes.data_as(native.p_i32),
-            tcig_blob, tcig_off.ctypes.data_as(native.p_i64),
-            out.ctypes.data_as(ctypes.c_void_p), cap,
-            off.ctypes.data_as(native.p_i64))
-        if wrote >= 0:
-            return out[:wrote].tobytes(), off, nm, span
-        cap *= 2
+    with trace.span("urmap.cigars.compose"):
+        mg = np.zeros(n, np.uint8)
+        mg[m_only] = 1
+        mg[gapped] = 2
+        lens32 = np.ascontiguousarray(result.lengths, dtype=np.int32)
+        strand32 = np.ascontiguousarray(result.strand, dtype=np.int32)
+        raw32 = (None if raw_lengths is None
+                 else np.ascontiguousarray(raw_lengths, dtype=np.int32))
+        cap = 48 * n + len(tcig_blob) + 64
+        while True:
+            out = np.empty(cap, np.uint8)
+            off = np.empty(n + 1, np.int64)
+            wrote = lib.urmap_compose_cigars(
+                n, lens32.ctypes.data_as(native.p_i32),
+                raw32.ctypes.data_as(native.p_i32) if raw32 is not None
+                else None,
+                mg.ctypes.data_as(native.p_u8),
+                strand32.ctypes.data_as(native.p_i32),
+                tcig_blob, tcig_off.ctypes.data_as(native.p_i64),
+                out.ctypes.data_as(ctypes.c_void_p), cap,
+                off.ctypes.data_as(native.p_i64))
+            if wrote >= 0:
+                return out[:wrote].tobytes(), off, nm, span
+            cap *= 2
 
 
 # urmap_tpu/map/cigar.py:traceback, cigars_nm_fast, add_truncation_clips,

@@ -32,16 +32,18 @@ from urmap_tpu_torch import alphabet
 from urmap_tpu_torch.config import (IndexConfig, MapConfig, ScoreConfig,
                                     resolve_suspect_deficits)
 from urmap_tpu_torch.map.dp import NEG, banded_packed
-from urmap_tpu_torch.map.pipeline import (PACKED_COLS, MapResult,
+from urmap_tpu_torch.kernels import rescue_rounds
+from urmap_tpu_torch.map.pipeline import (PACKED_COLS, MapResult, _any,
                                           _nonzero_padded,
-                                          candidates_batch_device,
+                                          candidates_batch_device, download,
                                           merge_tb_batches, pack_out,
                                           revcomp_batch,
                                           revcomp_strand_codes, tb_cols,
                                           tb_pass_device, tb_rows,
-                                          unpack_out, unpack_tb)
+                                          unpack_out, unpack_tb, upload)
 from urmap_tpu_torch.map.seed import POS_BIAS
-from urmap_tpu_torch.map.select import select_hits
+from urmap_tpu_torch.map.select import host_scalar, select_hits
+from urmap_tpu_torch.utils import trace
 
 # A rescued mate's placement is inferred from the anchor, not seeded on
 # its own: its MAPQ is capped here.
@@ -183,7 +185,7 @@ def map_pairs_device(tables: dict, r1: torch.Tensor, l1: torch.Tensor,
 
     pair = _pair_cross(c1, c2, l1, l2, mcfg)
     f32 = torch.float32
-    frac = torch.tensor(mcfg.min_score_frac, dtype=f32, device=dev)
+    frac = host_scalar(mcfg.min_score_frac, dev)
 
     def min_score(lengths):
         return torch.ceil(frac * lengths.to(f32)).to(torch.int32)
@@ -194,7 +196,7 @@ def map_pairs_device(tables: dict, r1: torch.Tensor, l1: torch.Tensor,
               & (l1 >= icfg.k) & (l2 >= icfg.k))
 
     # float32 and round-half-to-even, as select_hits
-    scale = torch.tensor(mcfg.mapq_scale, dtype=f32, device=dev)
+    scale = host_scalar(mcfg.mapq_scale, dev)
     pair_gap = (pair["score"] - pair["second"]).to(f32)
     pair_mapq = torch.round(scale * pair_gap).clamp(0, mcfg.max_mapq) \
         .to(torch.int32)
@@ -227,7 +229,7 @@ def map_pairs_device(tables: dict, r1: torch.Tensor, l1: torch.Tensor,
     r_ung = r_score.clone()
     served = torch.zeros(B, dtype=torch.bool, device=dev)
     rounds = 0
-    while bool((any_anchor & ~served).any()):
+    while _any(any_anchor & ~served, "rescue"):
         rem = any_anchor & ~served
         idx = _nonzero_padded(rem, Dr)
         do = rem[idx]
@@ -239,6 +241,7 @@ def map_pairs_device(tables: dict, r1: torch.Tensor, l1: torch.Tensor,
         r_ung[idx] = torch.where(do, sub["ungapped"], r_ung[idx])
         served[idx] = served[idx] | do
         rounds += 1
+    rescue_rounds.add(rounds)
     if stats is not None:
         stats["rescue_rounds"] = stats.get("rescue_rounds", 0) + rounds
     resc = {"pos": r_pos, "score": r_score, "ungapped": r_ung}
@@ -421,22 +424,30 @@ class PairedMapper:
     def start_batch(self, codes1, lengths1, codes2, lengths2, *,
                     prepacked=None):
         """Map one (<= pair_batch) pair batch; returns a handle for
-        finish_batch. Device work is queued on the current stream."""
-        *blocks, B = (prepacked if prepacked is not None
-                      else self.prepack(codes1, lengths1, codes2, lengths2))
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        out = map_pairs_packed(self.mapper.tables, *(put(a) for a in blocks),
-                               icfg=self.mapper.icfg, mcfg=self.mcfg,
-                               sc=self.sc, tb=self.tb, stats=self.stats)
-        self.stats["batches"] += 1
-        return out, B
+        finish_batch. Device work is queued on the current stream. The
+        batch's id (tracing on, utils/trace.py) rides the handle."""
+        batch = trace.new_batch()
+        with trace.span("urmap.start_batch", batch):
+            *blocks, B = (prepacked if prepacked is not None
+                          else self.prepack(codes1, lengths1, codes2,
+                                            lengths2))
+            out = map_pairs_packed(self.mapper.tables,
+                                   *(upload(a, self.device) for a in blocks),
+                                   icfg=self.mapper.icfg, mcfg=self.mcfg,
+                                   sc=self.sc, tb=self.tb, stats=self.stats)
+            self.stats["batches"] += 1
+        return out, B, batch
 
     def finish_batch(self, handle, lengths1, lengths2) -> PairResult:
-        out, B = handle
-        arr = out.cpu().numpy()
+        out, B, batch = handle
+        with trace.span("urmap.finish_batch", batch):
+            arr = download(out)
+            with trace.span("urmap.unpack"):
+                res = self._unpack(arr, B, lengths1, lengths2)
+        res.m1.batch = res.m2.batch = batch
+        return res
+
+    def _unpack(self, arr, B, lengths1, lengths2) -> PairResult:
         tbmat = None
         Bp = self.pair_batch
         C = PACKED_COLS
@@ -483,25 +494,27 @@ class PairedMapper:
         orientation inside the fragment window makes its pair proper,
         a moved mate that breaks a proper pair demotes it. ``res``
         unchanged when the wrapped mapper has no second pass."""
-        if getattr(self.mapper, "second", None) is None:
+        with trace.span("urmap.second_pass", trace.batch_of(res)):
+            if getattr(self.mapper, "second", None) is None:
+                return res
+            sp = self.mapper.second_pass
+
+            def snap(m):
+                return (m.mapped.copy(), m.pos.copy(), m.strand.copy())
+
+            s1, s2 = snap(res.m1), snap(res.m2)
+            res = PairResult(m1=sp(codes1, lengths1, res.m1),
+                             m2=sp(codes2, lengths2, res.m2),
+                             proper=res.proper)
+
+            def moved(m, s):
+                return ((m.mapped != s[0]) | (m.pos != s[1])
+                        | (m.strand != s[2]))
+
+            touched = moved(res.m1, s1) | moved(res.m2, s2)
+            if touched.any():
+                self._recheck_pairs(codes1, codes2, res, touched)
             return res
-        sp = self.mapper.second_pass
-
-        def snap(m):
-            return (m.mapped.copy(), m.pos.copy(), m.strand.copy())
-
-        s1, s2 = snap(res.m1), snap(res.m2)
-        res = PairResult(m1=sp(codes1, lengths1, res.m1),
-                         m2=sp(codes2, lengths2, res.m2),
-                         proper=res.proper)
-
-        def moved(m, s):
-            return (m.mapped != s[0]) | (m.pos != s[1]) | (m.strand != s[2])
-
-        touched = moved(res.m1, s1) | moved(res.m2, s2)
-        if touched.any():
-            self._recheck_pairs(codes1, codes2, res, touched)
-        return res
 
     def _recheck_pairs(self, codes1, codes2, res: PairResult,
                        touched: np.ndarray) -> None:

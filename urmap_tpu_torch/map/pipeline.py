@@ -35,7 +35,8 @@ from urmap_tpu_torch.config import (IndexConfig, MapConfig, ScoreConfig,
 from urmap_tpu_torch.device import require_device
 from urmap_tpu_torch.map.dp import NEG, banded_packed
 from urmap_tpu_torch.map.seed import POS_BIAS, SENTINEL, gather_runs
-from urmap_tpu_torch.map.select import select_hits
+from urmap_tpu_torch.map.select import host_scalar, select_hits
+from urmap_tpu_torch.utils import trace
 
 _COMP = np.asarray(alphabet.COMP_CODE)
 
@@ -47,7 +48,9 @@ def revcomp_batch(reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     lanes among themselves; callers keep the pad uniform READ_N, and
     this index form gives the same lanes either way."""
     B, L = reads.shape
-    comp = torch.from_numpy(_COMP).to(reads.device)[reads.long()]
+    with trace.sync("const"):
+        comp_table = torch.from_numpy(_COMP).to(reads.device)
+    comp = comp_table[reads.long()]
     col = torch.arange(L, dtype=torch.int64, device=reads.device)[None, :]
     ln = lengths.long()[:, None]
     src = torch.where(col < ln, ln - 1 - col, L - 1 - col + ln)
@@ -71,6 +74,7 @@ class MapResult:
     clipped: np.ndarray | None = None   # bool: clip-rescued row
     suspect: np.ndarray | None = None   # bool: saturated-evidence winner
     tb: dict | None = None              # device traceback (unpack_tb)
+    batch: int | None = None            # the batch id (utils/trace.py)
 
     @classmethod
     def from_device(cls, out: dict, lengths) -> "MapResult":
@@ -181,10 +185,31 @@ def _nonzero_padded(mask: torch.Tensor, size: int) -> torch.Tensor:
     alias row 0; callers take ``do = mask[idx]``, so a fill lane
     computes and writes exactly what lane row 0 does (or leaves row 0
     as it was), and duplicate-index writes agree."""
-    idx = mask.nonzero().flatten()[:size]
+    with trace.sync("nonzero"):
+        idx = mask.nonzero().flatten()[:size]
     if idx.shape[0] < size:
         idx = torch.cat([idx, idx.new_zeros(size - idx.shape[0])])
     return idx
+
+
+def _any(mask: torch.Tensor, site: str) -> bool:
+    """A round loop's condition, read back by the host (a sync)."""
+    with trace.sync(site):
+        return bool(mask.any())
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on the device (from pageable memory: the host waits
+    for the copy, a sync)."""
+    with trace.sync("upload"):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def download(out: torch.Tensor) -> np.ndarray:
+    """A batch's flat output on the host (the host waits for the card to
+    finish the batch, a sync)."""
+    with trace.sync("download"):
+        return out.cpu().numpy()
 
 
 def _fold(x: torch.Tensor, rows: int, v: int) -> torch.Tensor:
@@ -214,7 +239,8 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     rnplane2 int32[2B, nw]: rows [0, B) forward, [B, 2B) reverse
     complement), which the traceback pass reads again."""
     from urmap_tpu_torch import genome_pack as gpk
-    from urmap_tpu_torch.kernels import seed_slots, vote
+    from urmap_tpu_torch.kernels import (clip_rounds, dp_rounds, seed_slots,
+                                         verify_rounds, vote)
 
     B = lengths.shape[0]
     dev = lengths.device
@@ -286,7 +312,8 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
         starts_all = torch.where(valid_flat, flat_cand, 0)
         mm = flat_lens.clone()      # all-mismatch; SENTINEL lanes masked
         done = torch.zeros(nv, dtype=torch.bool, device=dev)
-        while bool((valid_flat & ~done).any()):
+        rounds = 0
+        while _any(valid_flat & ~done, "verify"):
             rem = valid_flat & ~done
             idx = _nonzero_padded(rem, cap)
             do = rem[idx]
@@ -296,6 +323,8 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
                                          lengths2[rrow])
             mm[idx] = torch.where(do, mm_sub, mm[idx])
             done[idx] = done[idx] | do
+            rounds += 1
+        verify_rounds.add(rounds)
     else:
         mm = gpk.mismatch_counts(
             ginter, base_off, torch.where(valid_flat, flat_cand, 0),
@@ -353,7 +382,8 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     spans0 = lengths[:, None].expand(B, 2 * v)
     spans_f = spans0.clone()
     served = torch.zeros(B, dtype=torch.bool, device=dev)
-    while bool((need_dp & ~served).any()):
+    rounds = 0
+    while _any(need_dp & ~served, "dp"):
         rem = need_dp & ~served
         idx = _nonzero_padded(rem, D)
         do = rem[idx]
@@ -365,14 +395,15 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
         ungapped_f[idx] = torch.where(upd, dp_ung, ungapped_f[idx])
         spans_f[idx] = torch.where(upd, dp_sp, spans_f[idx])
         served[idx] = served[idx] | do
+        rounds += 1
+    dp_rounds.add(rounds)
 
     # ---- clip-rescue lane (config.MapConfig.clip_rescue) ----
     # reads still below the mapping threshold get one more bucketed DP
     # in end-clip mode; it touches only would-be-unmapped reads
     clipped_read = torch.zeros(B, dtype=torch.bool, device=dev)
     if mcfg.clip_rescue and not mcfg.end_clip:
-        frac = torch.tensor(mcfg.min_score_frac, dtype=torch.float32,
-                            device=dev)
+        frac = host_scalar(mcfg.min_score_frac, dev)
         min_sc = torch.ceil(frac * lengths.to(torch.float32)) \
             .to(torch.int32)
         best_now = torch.where(valid_c, scores_f, NEG).amax(dim=-1)
@@ -380,7 +411,8 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
                      & (lengths >= icfg.k))
         Dc = max(B // mcfg.clip_rescue_capacity_frac, 1)
         cserved = torch.zeros(B, dtype=torch.bool, device=dev)
-        while bool((need_clip & ~cserved).any()):
+        rounds = 0
+        while _any(need_clip & ~cserved, "clip"):
             rem = need_clip & ~cserved
             idx = _nonzero_padded(rem, Dc)
             do = rem[idx]
@@ -392,6 +424,8 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
             ungapped_f[idx] = torch.where(upd, dp_ung, ungapped_f[idx])
             clipped_read[idx] = clipped_read[idx] | do
             cserved[idx] = cserved[idx] | do
+            rounds += 1
+        clip_rounds.add(rounds)
         # rescued candidates: spans fall back to the length proxy
         spans_f = torch.where(clipped_read[:, None], spans0, spans_f)
 
@@ -782,9 +816,10 @@ class Mapper:
         in place (no-op when second_pass_p is 0). Thread-safe: the CLI
         calls it from its formatting workers, beside the next batch's
         dispatch to the card."""
-        if self.second is None:
-            return result
-        return self.second(codes, lengths, result)
+        with trace.span("urmap.second_pass", result.batch):
+            if self.second is None:
+                return result
+            return self.second(codes, lengths, result)
 
     def _pad_full(self, codes: np.ndarray, lengths: np.ndarray):
         """Pad to the full [batch_size, max_read_len] block (rows of
@@ -816,38 +851,45 @@ class Mapper:
         """Map one (<= batch_size) batch; returns a handle for
         finish_batch. Device work is queued on the current stream; the
         verify and DP rounds read their loop conditions back, so this
-        returns once the last round is queued."""
-        pk, nm, lens, B = (prepacked if prepacked is not None
-                           else self.prepack(codes, lengths))
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        out = map_batch_device(self.tables, None, put(lens),
-                               icfg=self.icfg, mcfg=self.mcfg, sc=self.sc,
-                               packed_reads=(put(pk), put(nm)), tb=self.tb)
-        packed = pack_out(out)
-        if self.tb:
-            # one array, one device-to-host copy; finish_batch splits it
-            # by the known sizes
-            packed = torch.cat([packed.reshape(-1), out["_tb"].reshape(-1)])
-        return packed, B
+        returns once the last round is queued. The batch's id (tracing
+        on, utils/trace.py) rides the handle to finish_batch."""
+        batch = trace.new_batch()
+        with trace.span("urmap.start_batch", batch):
+            pk, nm, lens, B = (prepacked if prepacked is not None
+                               else self.prepack(codes, lengths))
+            out = map_batch_device(self.tables, None, upload(lens,
+                                                             self.device),
+                                   icfg=self.icfg, mcfg=self.mcfg,
+                                   sc=self.sc,
+                                   packed_reads=(upload(pk, self.device),
+                                                 upload(nm, self.device)),
+                                   tb=self.tb)
+            packed = pack_out(out)
+            if self.tb:
+                # one array, one device-to-host copy; finish_batch splits
+                # it by the known sizes
+                packed = torch.cat([packed.reshape(-1),
+                                    out["_tb"].reshape(-1)])
+        return packed, B, batch
 
     def finish_batch(self, handle, lengths) -> MapResult:
-        out, B = handle
-        arr = out.cpu().numpy()
-        tbmat = None
-        if self.tb:
-            bs = self.mcfg.batch_size
-            split = bs * PACKED_COLS
-            tbmat = arr[split:].reshape(tb_rows(self.mcfg),
-                                        tb_cols(bs, self.mcfg))
-            arr = arr[:split].reshape(bs, PACKED_COLS)
-        merged = {k: v[:B] for k, v in unpack_out(arr).items()}
-        res = MapResult.from_device(merged, np.asarray(lengths)[:B])
-        if tbmat is not None:
-            res.tb = unpack_tb(tbmat, self.mcfg.band_halfwidth,
-                               self.mcfg.max_read_len)
+        out, B, batch = handle
+        with trace.span("urmap.finish_batch", batch):
+            arr = download(out)
+            with trace.span("urmap.unpack"):
+                tbmat = None
+                if self.tb:
+                    bs = self.mcfg.batch_size
+                    split = bs * PACKED_COLS
+                    tbmat = arr[split:].reshape(tb_rows(self.mcfg),
+                                                tb_cols(bs, self.mcfg))
+                    arr = arr[:split].reshape(bs, PACKED_COLS)
+                merged = {k: v[:B] for k, v in unpack_out(arr).items()}
+                res = MapResult.from_device(merged, np.asarray(lengths)[:B])
+                if tbmat is not None:
+                    res.tb = unpack_tb(tbmat, self.mcfg.band_halfwidth,
+                                       self.mcfg.max_read_len)
+        res.batch = batch
         return res
 
     def map_codes(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:

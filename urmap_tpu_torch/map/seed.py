@@ -278,7 +278,7 @@ def _tiered_gather(positions: torch.Tensor, flat: torch.Tensor,
     fill lanes alias seed 0, so a round writes back only the lanes
     ``do`` marks."""
     from urmap_tpu_torch.kernels import lane_rotate, tier_rounds
-    from urmap_tpu_torch.map.pipeline import _nonzero_padded
+    from urmap_tpu_torch.map.pipeline import _any, _nonzero_padded
 
     if tier & (tier - 1):
         raise ValueError(f"tier {tier} is not a power of two")
@@ -296,7 +296,7 @@ def _tiered_gather(positions: torch.Tensor, flat: torch.Tensor,
     cap2 = min(max(nq // overflow_frac, 128), nq)
     done = torch.zeros(nq, dtype=torch.bool, device=cnt.device)
     rounds = 0
-    while bool((ov & ~done).any()):
+    while _any(ov & ~done, "tier"):
         rem = ov & ~done
         idx = _nonzero_padded(rem, cap2)
         do = rem[idx]

@@ -12,6 +12,14 @@ import torch
 from urmap_tpu_torch.config import MapConfig
 from urmap_tpu_torch.map.dp import NEG
 from urmap_tpu_torch.map.seed import SENTINEL
+from urmap_tpu_torch.utils import trace
+
+
+def host_scalar(value: float, device: torch.device) -> torch.Tensor:
+    """A float32 scalar sent from the host to ``device`` (from pageable
+    memory: the host waits for the stream, a sync)."""
+    with trace.sync("const"):
+        return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 def select_hits(pos, scores, strands, valid, lengths, ungapped, *,
@@ -37,14 +45,14 @@ def select_hits(pos, scores, strands, valid, lengths, ungapped, *,
     second = torch.where(distinct, scores, NEG).amax(dim=-1)
 
     f32 = torch.float32
-    frac = torch.tensor(mc.min_score_frac, dtype=f32, device=lengths.device)
+    frac = host_scalar(mc.min_score_frac, lengths.device)
     min_score = torch.ceil(frac * lengths.to(f32)).to(torch.int32)
     mapped = (best_score > NEG) & (best_score >= min_score) & (lengths >= k)
 
     # MAPQ = clip(round(scale * (best - second)), 0, max) in float32;
     # torch.round rounds half to even, as jnp.round does in the
     # reference. No competing locus → max.
-    scale = torch.tensor(mc.mapq_scale, dtype=f32, device=lengths.device)
+    scale = host_scalar(mc.mapq_scale, lengths.device)
     gap = (best_score - second).to(f32)
     mapq = torch.round(scale * gap).clamp(0, mc.max_mapq).to(torch.int32)
     mapq = torch.where(second <= NEG // 2, mc.max_mapq, mapq)
