@@ -27,7 +27,9 @@ Phases, each printing one JSON line:
                routes' front); the shapes past the default: B1 (both modes) and
                B1' at band half-widths 12, 24 and 40, B6 and B7 at 12, 24
                and 31, B6 and B1 on read blocks of 700 and 2,000, B4 at
-               256 and 2,048 candidates a read; kernel vs plain version
+               256 and 2,048 candidates a read; the clip traceback at
+               se150_adapters' shape (8,192 lanes, reads of 150 in a
+               block of 160); kernel vs plain version
                on the card, exact equality (integer outputs, tolerance
                0), median times of synchronised runs beside each
                kernel's bound;
@@ -293,6 +295,47 @@ def max_abs_err(got, want) -> int:
 
 
 # ---- phase 3: kernel vs plain version ---------------------------------
+
+CLIP_TB_N = 8192                 # tb_cols of a 65,536-read batch
+
+
+def clip_tb_inputs(rng, n: int):
+    """The clip traceback's inputs at se150_adapters' shape: ``n`` lanes,
+    a read block of L_MAX, reads of READ_LEN against a window from POS
+    of L_MAX + 48 bases (windows, reads, lengths, widths). Reads with a
+    65-75 base adapter tail, some with a random head, a 1-8 base indel,
+    read N; some shorter reads, some windows cut short (the genome's
+    end), and lanes of length 0, above the block and of width 0."""
+    wl = L_MAX + 48
+    g = rng.integers(0, 4, size=(n, wl + 16)).astype(np.uint8)
+    g[rng.random(g.shape) < 0.002] = 4                      # genome N
+    win = g[:, :wl].copy()
+    reads = np.full((n, L_MAX), 5, np.uint8)
+    lens = np.full(n, READ_LEN, np.int32)
+    lens[1::16] = rng.integers(24, READ_LEN, size=len(lens[1::16]))
+    widths = np.minimum(lens + 48, wl).astype(np.int32)
+    widths[2::64] = rng.integers(1, READ_LEN, size=len(widths[2::64]))
+    for i in range(n):
+        ln = int(lens[i])
+        r = g[i, : ln + 16].copy()
+        kind = i % 6
+        if kind == 1:                                       # deletion
+            o, d = int(rng.integers(8, ln - 8)), int(rng.integers(1, 9))
+            r = np.concatenate([r[:o], g[i, o + d : ln + 16]])
+        elif kind == 2:                                     # insertion
+            o, d = int(rng.integers(8, ln - 8)), int(rng.integers(1, 9))
+            r = np.concatenate([r[:o], rng.integers(0, 4, d), r[o:]])
+        r = r[:ln].astype(np.uint8)
+        t = min(int(rng.integers(65, 76)), ln // 2)
+        r[ln - t :] = rng.integers(0, 4, t)                 # adapter tail
+        if kind == 3:
+            r[: int(rng.integers(1, 30))] = rng.integers(0, 4)  # a head
+        r[rng.random(ln) < 0.005] = 5                       # read N
+        reads[i, :ln] = r
+    lens[-3:] = [0, L_MAX + 5, READ_LEN]
+    widths[-1] = 0
+    return win, reads, lens, widths
+
 
 def kernel_inputs(rng, n_reads: int, n_dp: int, n_clip: int):
     """Numpy inputs at the slice's shapes, with the awkward cases."""
@@ -995,6 +1038,26 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
         cases[name] = (lambda mx=mx: (micro.passes(mx),),
                        lambda mx=mx: (micro.plain_passes(mx),), (mx,),
                        2 * micro.PASSES * mx.numel())
+    # The clip traceback (no TPU kernel: the reference's host clip DP) at
+    # se150_adapters' shape, drawn after B8. Per cell of the full window
+    # (length x (width + 1)): E (add+max) and the ee compare 2; the
+    # substitution (compare, select) 2; T 1; the deletion chain's running
+    # max (add+max) and F (add+max) 2; H 1; hc (2 compares, 2 selects) 4;
+    # the fe compare 1; the nibble (shift-or, merge) 2; the end-clip scan
+    # (a compare, its selects fold into it) 1: 16; the walk ~12 a row.
+    from urmap_tpu_torch.kernels import clip_tb
+    from urmap_tpu_torch.map import clip_tb as clipmod
+
+    cw, cr, cl, cwid = (put(a) for a in clip_tb_inputs(rng, CLIP_TB_N))
+    live = (cl >= 1) & (cl <= L_MAX) & (cwid >= 1)
+    cells = int(torch.where(live, cl.long() * (cwid.long() + 1), 0).sum())
+    cases["clip_tb"] = (
+        lambda: clip_tb.clip_tb(cw, cr, cl, cwid, sc=sc,
+                                clip_open=sc.clip_open),
+        lambda: clipmod.clip_tb_from_windows(cw, cr, cl, cwid, sc=sc,
+                                             clip_open=sc.clip_open),
+        (cw, cr, cl, cwid),
+        cells * 16 + int(torch.where(live, cl, 0).sum()) * 12)
     recs = {}
     for name, (kern, plain, inputs, ops, *moved) in cases.items():
         got = kern()
@@ -1028,6 +1091,13 @@ def phase_kernels(dev, rng, n_reads: int, n_dp: int, n_clip: int) -> dict:
                     *a[:3], hw=HW, sc=sc, clip_open=a[3]), dev)
         if name.startswith("banded_semiglobal"):
             rec["gapped"] = int((want[2] < want[0]).sum())
+        if name == "clip_tb":
+            rec["ok"] = int(want[2].sum())
+            # lanes whose records hold an S row: a start or an end clip
+            s_rows = torch.zeros_like(want[1], dtype=torch.bool)
+            for b in range(4):
+                s_rows |= ((want[1] >> (8 * b + 7)) & 1).bool()
+            rec["clipped"] = int(s_rows.any(0).sum())
         if name.startswith("tb_dops"):
             rec["walk_ok"] = int(want[2].sum())
             rec["gapped"] = int((want[1] & 0x7F7F7F7F).ne(0).any(0).sum())
@@ -1376,14 +1446,16 @@ def reset_counters() -> None:
 
 
 def check_counters(counts: dict, what: str, end_clip: bool = False) -> None:
-    """Every kernel of the mapping path launched, no plain version ran
+    """Every kernel of the mapping path launched (the clip traceback
+    where the path had clip-rescued gapped winners), no plain version ran
     (outside the wide second pass's host_pass); under end_clip the
     kernels that path does not run were not launched either."""
-    from urmap_tpu_torch.kernels import OFF_PATH, OFF_PATH_END_CLIP
+    from urmap_tpu_torch.kernels import (OFF_PATH, OFF_PATH_END_CLIP,
+                                         ON_CLIP_ROWS)
 
     off = OFF_PATH_END_CLIP if end_clip else OFF_PATH
     for name, c in counts.items():
-        check(c["launches"] > 0 or name in off,
+        check(c["launches"] > 0 or name in off or name in ON_CLIP_ROWS,
               f"{name}: no kernel launch in {what}")
         check(c["plain_calls"] == 0, f"{name}: plain version ran in {what}")
     if end_clip:
@@ -4498,6 +4570,9 @@ def main(argv=None) -> int:
         "rotate_narrow": ("lane_rotate.cu", "lane_rotate.py:120"),
         "tb_bits": ("tb_dp.cu", "tb_dp.py:227"),
         "micro_passes": ("micro_passes.cu", "tools/bench_microvpu.py:73"),
+        # no TPU kernel: the reference runs this DP on the host
+        "clip_tb": ("clip_tb.cu",
+                    "urmap_tpu/io/native/codecs.cpp:298 (host, clip mode)"),
     }
     # entries that share a counter, told apart by the width it records
     by_width = {

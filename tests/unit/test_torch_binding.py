@@ -36,13 +36,15 @@ CALLED = {name for text in WRAPPERS.values()
 
 
 def test_binding_defines_the_eleven_operators():
-    """The eleven operators of the mapping kernels (B1-B7), and B8's, the
-    micro-benchmark's (tools/bench_microvpu.py)."""
-    assert len(DEFINED) == len(set(DEFINED)) == 11 + 1
+    """The eleven operators of the mapping kernels (B1-B7), B8's, the
+    micro-benchmark's (tools/bench_microvpu.py), and the clip
+    traceback's (no TPU kernel: the reference's host clip DP)."""
+    assert len(DEFINED) == len(set(DEFINED)) == 11 + 1 + 1
     assert {"window_codes", "window_mismatches", "tb_dops", "tb_bits",
             "row128_fetch", "row128_window_fetch", "rotate_narrow",
             "seed_front", "vote", "banded_dp",
-            "banded_semiglobal"} | {"micro_passes"} == set(DEFINED)
+            "banded_semiglobal"} | {"micro_passes", "clip_tb"} \
+        == set(DEFINED)
 
 
 @pytest.mark.parametrize("name", DEFINED)
@@ -70,7 +72,7 @@ def test_entry_points_are_declared_and_defined():
     which declares none itself."""
     header = _read(os.path.join(PKG, "csrc", "urmap_kernels.h"))
     declared = re.findall(r"^int (urmap_\w+)\(", header, re.M)
-    assert len(declared) == len(set(declared)) == 10 + 1   # B8's
+    assert len(declared) == len(set(declared)) == 10 + 1 + 1  # B8, clip
     include = '#include "urmap_kernels.h"'
     assert include in OPS_CPP and 'extern "C"' not in OPS_CPP
     defined = []

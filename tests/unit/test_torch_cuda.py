@@ -39,7 +39,7 @@ def test_kernels_match_plain_versions(cuda_device):
             "window_codes", "window_codes_row128", "window_codes_w1200",
             "window_mismatches", "window_mismatches_row128",
             "rotate_narrow", "banded_semiglobal",
-            "banded_semiglobal_clip"} <= set(recs)
+            "banded_semiglobal_clip", "clip_tb"} <= set(recs)
 
 
 def _tb_inputs(seed, n, L, hw, dev):
@@ -207,6 +207,112 @@ def test_cuda_mapper_matches_cpu_mapper(cuda_device, max_read_len, tb_bits):
                 # narrow-row gather clamp differently; never read
                 a, b = a[:, got.tb["cols"]], b[:, want.tb["cols"]]
             np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+@pytest.mark.parametrize("n,L", [(8192, 160), (300, 37), (300, 101),
+                                 (1, 150), (300, 207)])
+def test_clip_tb_kernel_matches_plain(cuda_device, n, L):
+    """The clip traceback at se150_adapters' shape (8,192 lanes, reads
+    of 150 in a block of 160: chip_smoke.clip_tb_inputs) and at other
+    read blocks up to its 207, with lanes of length 0, above the block,
+    of width 0 and cut short: equal to the plain version on every
+    output."""
+    import chip_smoke
+    from urmap_tpu_torch.kernels import clip_tb
+    from urmap_tpu_torch.map import clip_tb as plain
+
+    sc = ScoreConfig()
+    rng = np.random.default_rng(L)
+    if L == chip_smoke.L_MAX:
+        arrays = chip_smoke.clip_tb_inputs(rng, n)
+    else:
+        g = rng.integers(0, 4, (n, L + 64)).astype(np.uint8)
+        win = g[:, : L + 48].copy()
+        reads = np.full((n, L), 5, np.uint8)
+        lens = rng.integers(max(L // 2, 1), L + 1, n).astype(np.int32)
+        for i in range(n):
+            r = g[i, : lens[i]].copy()
+            t = int(rng.integers(0, lens[i] // 2 + 1))
+            r[lens[i] - t :] = rng.integers(0, 4, t)
+            reads[i, : lens[i]] = r
+        widths = np.minimum(lens + 48, rng.integers(1, L + 49, n)) \
+            .astype(np.int32)
+        if n > 3:
+            lens[-3:] = [0, L + 1, L]
+            widths[-1] = 0
+        arrays = (win, reads, lens, widths)
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in arrays)
+    clip_tb.counter.reset()
+    got = clip_tb.clip_tb(*args, sc=sc, clip_open=sc.clip_open)
+    torch.cuda.synchronize()
+    assert clip_tb.counter.launches == 1
+    assert clip_tb.counter.plain_calls == 0
+    want = plain.clip_tb_from_windows(*args, sc=sc, clip_open=sc.clip_open)
+    for name, g_, w in zip(("score", "recs", "ok"), got, want):
+        assert g_.dtype == w.dtype and g_.shape == w.shape, name
+        assert torch.equal(g_, w), name
+    assert int(want[2].sum()) >= n - 3
+
+
+def test_clip_tb_kernel_refuses_what_it_cannot_hold(cuda_device):
+    """Reads above 207 bases (a warp holds 256 window columns) and
+    gap_open above gap_extend (the deletion chain's closed form is not
+    the host's there) raise ValueError; the mapping path never asks
+    (kernels.clip_tb.enabled)."""
+    from urmap_tpu_torch.kernels import clip_tb
+
+    for L, sc in ((208, ScoreConfig()),
+                  (150, ScoreConfig(gap_open=-1, gap_extend=-2))):
+        args = (torch.zeros((4, L + 48), dtype=torch.uint8,
+                            device=cuda_device),
+                torch.zeros((4, L), dtype=torch.uint8, device=cuda_device),
+                torch.full((4,), L, dtype=torch.int32, device=cuda_device),
+                torch.full((4,), L, dtype=torch.int32, device=cuda_device))
+        assert not clip_tb.enabled(L, sc)
+        with pytest.raises(ValueError, match="clip_tb"):
+            clip_tb.clip_tb(*args, sc=sc, clip_open=sc.clip_open)
+
+
+def test_cuda_mapper_clip_tb_matches_cpu_mapper(cuda_device):
+    """Reads with 65-75 base adapter tails: the clip-rescued gapped
+    winners take the clip traceback on the card, its live records equal
+    the CPU Mapper's, and the SAM writer's CIGARs from them equal the
+    host clip DP's."""
+    from urmap_tpu_torch.kernels import clip_tb
+    from urmap_tpu_torch.map.cigar import cigars_nm_blob
+
+    rng = np.random.default_rng(5)
+    db = make_seqdb(rng, [200_000])
+    reads = []
+    for i in range(512):
+        r = plant_read(rng, db, n_snps=1, dels=2 if i % 4 == 1 else 0)
+        if i % 3 == 0:
+            t = int(rng.integers(65, 76))
+            r.codes = r.codes.copy()
+            r.codes[150 - t :] = rng.integers(0, 4, t)
+        reads.append(r)
+    codes = np.stack([r.codes for r in reads])
+    lengths = np.full(len(reads), 150, np.int32)
+    idx = build_index(db, backend="host")
+    mcfg = MapConfig(batch_size=256)
+    clip_tb.counter.reset()
+    got = Mapper(idx, mcfg, device=cuda_device).map_codes(codes, lengths)
+    assert clip_tb.counter.launches == 2
+    assert clip_tb.counter.plain_calls == 0
+    want = Mapper(idx, mcfg, device="cpu").map_codes(codes, lengths)
+    crow = np.nonzero(got.clipped & got.gapped & got.mapped)[0]
+    assert crow.size > 50
+    np.testing.assert_array_equal(got.clip_tb["rows"], crow)
+    for k in got.clip_tb:
+        a, b = got.clip_tb[k], want.clip_tb[k]
+        if k == "recs":
+            a, b = a[:, got.clip_tb["cols"]], b[:, want.clip_tb["cols"]]
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    blob = cigars_nm_blob(db.codes, codes, got, ScoreConfig(),
+                          clip_rows=got.clipped)
+    got.clip_tb = None
+    assert cigars_nm_blob(db.codes, codes, got, ScoreConfig(),
+                          clip_rows=got.clipped)[0] == blob[0]
 
 
 def fused_fetch_inputs(seed, n, length, two_d):

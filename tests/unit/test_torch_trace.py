@@ -30,7 +30,8 @@ L = 150
 ROUNDS = {"verify": kernels.verify_rounds, "dp": kernels.dp_rounds,
           "clip": kernels.clip_rounds, "rescue": kernels.rescue_rounds,
           "tier": kernels.tier_rounds}
-ROW_COUNTERS = ("rows.replay", "rows.host_dp", "rows.clip_dp")
+ROW_COUNTERS = ("rows.replay", "rows.clip_replay", "rows.host_dp",
+                "rows.clip_dp")
 
 
 @pytest.fixture
@@ -175,18 +176,30 @@ def test_traced_batches(world, off, paired, tb_bits):
     for k in ROUNDS:
         got = sum(c.n for c in counts if c.name == f"rounds.{k}")
         assert got == added[k]
-    # every gapped row went one way: replayed, host DP or host clip DP
+    # every gapped row went one way: replayed (B6's records or the clip
+    # traceback's), host DP or host clip DP
     mates = [m for r in results for m in ((r.m1, r.m2) if paired else (r,))]
     gapped = sum(int((m.mapped & m.gapped).sum()) for m in mates)
     rows = {k: sum(c.n for c in counts if c.name == k) for k in ROW_COUNTERS}
     assert sum(rows.values()) == gapped > 0
-    assert rows["rows.clip_dp"] == sum(int(m.clipped.sum()) for m in mates)
+    clipped = sum(int(m.clipped.sum()) for m in mates)
+    assert rows["rows.clip_dp"] + rows["rows.clip_replay"] == clipped
+    assert sum(c.n for c in counts if c.name == "rows.clip_replay_failed") \
+        == 0
     if tb_bits:
         assert rows["rows.replay"] > 0
     else:
         assert rows["rows.replay"] == 0 and rows["rows.host_dp"] > 0
     if not paired:
-        assert rows["rows.clip_dp"] > 0
+        assert clipped > 0
+        # single-end: the clip traceback's records serve every clip row
+        # (the pass runs with the traceback on); the pair path keeps the
+        # host clip DP
+        if tb_bits:
+            assert rows["rows.clip_replay"] == clipped
+            assert "urmap.cigars.clip_replay" in names
+        else:
+            assert rows["rows.clip_dp"] == clipped
     else:
         assert sum(c.n for c in counts if c.name == "rounds.rescue") > 0
 

@@ -282,6 +282,44 @@ std::tuple<Tensor, Tensor, Tensor> tb_bits(
   return {score, bend, bits};
 }
 
+// The clip traceback → (score int32[N], recs int32[DWp, N], ok bool[N]).
+std::tuple<Tensor, Tensor, Tensor> clip_tb(
+    const Tensor& windows, const Tensor& reads, const Tensor& lengths,
+    const Tensor& widths, int64_t match, int64_t mismatch, int64_t gap_open,
+    int64_t gap_extend, int64_t clip_open) {
+  require(windows, "windows", at::kByte, 2);
+  require(reads, "reads", at::kByte, 2);
+  require(lengths, "lengths", at::kInt, 1);
+  require(widths, "widths", at::kInt, 1);
+  same_device(windows, reads, "reads");
+  same_device(windows, lengths, "lengths");
+  same_device(windows, widths, "widths");
+  const int64_t n = reads.size(0), L = reads.size(1);
+  TORCH_CHECK_VALUE(windows.size(0) == n && windows.size(1) == L + 48 &&
+                        lengths.size(0) == n && widths.size(0) == n,
+                    "clip_tb: windows ", windows.sizes(), ", reads ",
+                    reads.sizes(), ", lengths ", lengths.sizes(), ", widths ",
+                    widths.sizes());
+  TORCH_CHECK_VALUE(L >= 1 && L <= 207, "clip_tb: no kernel for reads of ",
+                    L, " bases: a warp holds 256 window columns, so 1 to 207");
+  TORCH_CHECK_VALUE(gap_open <= gap_extend, "clip_tb: gap_open ", gap_open,
+                    " above gap_extend ", gap_extend,
+                    ": the deletion chain's closed form is not the host's");
+  const int64_t dwp = ((L + 3) / 4 + 7) / 8 * 8;
+  const c10::cuda::CUDAGuard guard(windows.device());
+  Tensor score = at::empty({n}, like(windows, at::kInt));
+  Tensor recs = at::empty({dwp, n}, like(windows, at::kInt));
+  Tensor ok = at::empty({n}, like(windows, at::kBool));
+  launched(urmap_clip_tb(windows.data_ptr(), reads.data_ptr(),
+                         lengths.data_ptr(), widths.data_ptr(),
+                         score.data_ptr(), ok.data_ptr(), recs.data_ptr(),
+                         (int)n, (int)L, (int)match, (int)mismatch,
+                         (int)gap_open, (int)gap_extend, (int)clip_open,
+                         stream_of(windows)),
+           "urmap_clip_tb");
+  return {score, recs, ok};
+}
+
 Tensor fetch(const Tensor& table, const Tensor& starts, int64_t width,
              int64_t row_words, bool window) {
   require_table(table);
@@ -417,6 +455,9 @@ TORCH_LIBRARY(urmap, m) {
   m.def("tb_bits(Tensor windows, Tensor reads, Tensor lengths, int hw, "
         "int match, int mismatch, int gap_open, int gap_extend) "
         "-> (Tensor, Tensor, Tensor)");
+  m.def("clip_tb(Tensor windows, Tensor reads, Tensor lengths, Tensor widths, "
+        "int match, int mismatch, int gap_open, int gap_extend, int clip_open) "
+        "-> (Tensor, Tensor, Tensor)");
   m.def("row128_fetch(Tensor table, Tensor starts, int width, int row_words) "
         "-> Tensor");
   m.def("row128_window_fetch(Tensor table, Tensor starts, int width) "
@@ -436,6 +477,7 @@ TORCH_LIBRARY_IMPL(urmap, CUDA, m) {
   m.impl("banded_semiglobal", &banded_semiglobal);
   m.impl("tb_dops", &tb_dops);
   m.impl("tb_bits", &tb_bits);
+  m.impl("clip_tb", &clip_tb);
   m.impl("row128_fetch", &row128_fetch);
   m.impl("row128_window_fetch", &row128_window_fetch);
   m.impl("rotate_narrow", &rotate_narrow);

@@ -48,6 +48,12 @@ int urmap_tb_bits(const void* win, const void* reads, const void* lengths,
                   void* score, void* bend, void* bits, int n, int L, int hw,
                   int match, int mismatch, int gap_open, int gap_extend,
                   void* stream);
+// The clip traceback, clip_tb.cu: the clip-mode traceback of the
+// clip-rescued gapped winners over the host's whole window (no TPU kernel)
+int urmap_clip_tb(const void* win, const void* reads, const void* lengths,
+                  const void* widths, void* score, void* ok, void* recs, int n,
+                  int L, int match, int mismatch, int gap_open, int gap_extend,
+                  int clip_open, void* stream);
 // B5, lane_rotate.cu
 int urmap_row128_fetch(const void* table, long long M, int rw,
                        const void* starts, void* out, long long n, int width,

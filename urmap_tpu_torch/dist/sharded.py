@@ -62,11 +62,14 @@ import torch.distributed as dist
 
 from urmap_tpu_torch.config import MapConfig, ScoreConfig
 from urmap_tpu_torch.index.store import UfiIndex
+from urmap_tpu_torch.kernels import clip_tb
 from urmap_tpu_torch.map.dp import banded_packed
 from urmap_tpu_torch.map.pipeline import (PACKED_COLS, MapResult,
-                                          map_batch_device, pack_out,
-                                          refuse_beyond_card, tb_cols,
-                                          tb_enabled, tb_rows, unpack_out,
+                                          clip_tb_rows,
+                                          map_batch_device, merge_clip_tb,
+                                          pack_out, refuse_beyond_card,
+                                          tb_cols, tb_enabled, tb_rows,
+                                          unpack_clip_tb, unpack_out,
                                           unpack_tb)
 from urmap_tpu_torch.map.seed import (POS_BIAS, SENTINEL, decode_offsets,
                                       gather_runs)
@@ -572,6 +575,11 @@ class ShardedMapper:
                            off_bits=None)
         del st
         self.tb = tb_enabled(self.mcfg)
+        # the clip traceback's matrix rides every single-end batch's
+        # output (lanes with do 0 where this rank's clip lane ran no
+        # round): the all-gather takes one size from every rank
+        self._clip = self.tb and clip_tb.enabled(self.mcfg.max_read_len,
+                                                 self.sc)
         self._runners = _make_runners(self.tables, route=route,
                                       sps=self._sps, mcfg=self.mcfg,
                                       sc=self.sc, a2a_slack=self.a2a_slack,
@@ -622,6 +630,13 @@ class ShardedMapper:
         packed = pack_out(out).reshape(-1)
         if self.tb:
             packed = torch.cat([packed, out["_tb"].reshape(-1)])
+        if self._clip:
+            cm = out.get("_clip_tb")
+            if cm is None:
+                cm = torch.zeros((clip_tb_rows(self.mcfg),
+                                  tb_cols(self._rps(self._bs), self.mcfg)),
+                                 dtype=torch.int32, device=self.device)
+            packed = torch.cat([packed, cm.reshape(-1)])
         return packed, B
 
     def _gather_owners(self, flat: torch.Tensor) -> np.ndarray:
@@ -642,8 +657,30 @@ class ShardedMapper:
         if not self.tb:
             return rows, None
         C = tb_cols(tb_nrows, self.mcfg)
-        mats = arr[:, split:].reshape(arr.shape[0], tb_rows(self.mcfg), C)
+        mats = arr[:, split : split + tb_rows(self.mcfg) * C] \
+            .reshape(arr.shape[0], tb_rows(self.mcfg), C)
         return rows, np.concatenate(list(mats), axis=1)
+
+    def _clip_mats(self, arr: np.ndarray, tb_nrows: int):
+        """The clip traceback matrices at the end of each rank's flat
+        single-end output, side by side [clip_tb_rows, n_sh * C], or
+        None."""
+        if not self._clip:
+            return None
+        C = tb_cols(tb_nrows, self.mcfg)
+        nr = clip_tb_rows(self.mcfg)
+        mats = arr[:, arr.shape[1] - nr * C :].reshape(arr.shape[0], nr, C)
+        return np.concatenate(list(mats), axis=1)
+
+    def _merge_clip(self, arr: np.ndarray, rows_per_shard: int) -> dict:
+        """Per-shard clip blocks → one dict with global rows and columns
+        (shard s owns batch rows [s*rps, (s+1)*rps), as _merge_tb)."""
+        Cl = tb_cols(rows_per_shard, self.mcfg)
+        nsh = arr.shape[1] // Cl
+        return merge_clip_tb(
+            [unpack_clip_tb(arr[:, s * Cl : (s + 1) * Cl])
+             for s in range(nsh)],
+            [s * rows_per_shard for s in range(nsh)])
 
     def _merge_tb(self, arr: np.ndarray, rows_per_shard: int) -> dict:
         """Per-shard dops blocks → one host tb dict with global row and
@@ -675,12 +712,15 @@ class ShardedMapper:
         traceback matrices)."""
         out, B = handle
         rps = self._rps(self._bs)
-        rows, tbmat = self._split(self._gather_owners(out), rps, PACKED_COLS,
-                                  rps)
+        got = self._gather_owners(out)
+        rows, tbmat = self._split(got, rps, PACKED_COLS, rps)
         merged = {k: v[:B] for k, v in unpack_out(rows).items()}
         res = MapResult.from_device(merged, np.asarray(lengths)[:B])
         if tbmat is not None:
             res.tb = self._merge_tb(tbmat, rps)
+        clipmat = self._clip_mats(got, rps)
+        if clipmat is not None:
+            res.clip_tb = self._merge_clip(clipmat, rps)
         return res
 
     def _local_rows(self, B: int, rows: int):
@@ -708,6 +748,9 @@ class ShardedMapper:
         if tbmat is not None and rows.size:
             res.tb = unpack_tb(tbmat, self.mcfg.band_halfwidth,
                                self.mcfg.max_read_len)
+        clipmat = self._clip_mats(arr, rps)
+        if clipmat is not None and rows.size:
+            res.clip_tb = unpack_clip_tb(clipmat)
         return res, rows
 
     def map_codes(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:
@@ -730,6 +773,8 @@ class ShardedMapper:
         res = MapResult(lengths=np.asarray(lengths)[:B], **merged)
         res.tb = merge_tb_batches([o.tb for o in outs],
                                   range(0, B, self._bs))
+        res.clip_tb = merge_clip_tb([o.clip_tb for o in outs],
+                                    range(0, B, self._bs))
         return res
 
 

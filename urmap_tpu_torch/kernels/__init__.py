@@ -113,14 +113,14 @@ def counters() -> list[Counter]:
     B8 (the micro-benchmark's kernel, tools/bench_microvpu.py's alone).
     B5's plain window entry serves the classic layout's positions only:
     no launch on the aligned and row128 layouts."""
-    from urmap_tpu_torch.kernels import (banded_dp, lane_rotate, micro,
-                                         seed_slots, tb_dp, vote)
+    from urmap_tpu_torch.kernels import (banded_dp, clip_tb, lane_rotate,
+                                         micro, seed_slots, tb_dp, vote)
 
     return [seed_slots.counter, seed_slots.slots_counter,
             lane_rotate.fetch_counter, vote.counter,
             lane_rotate.mismatch_counter, lane_rotate.codes_counter,
             banded_dp.counter, banded_dp.clip_counter, tb_dp.counter,
-            lane_rotate.window_counter, banded_dp.semiglobal_counter,
+            clip_tb.counter, lane_rotate.window_counter, banded_dp.semiglobal_counter,
             banded_dp.semiglobal_clip_counter, lane_rotate.rotate_counter,
             tb_dp.bits_counter, micro.counter]
 
@@ -131,6 +131,10 @@ def counters() -> list[Counter]:
 OFF_PATH = ("seed_front_slots", "row128_window_fetch", "banded_semiglobal",
             "banded_semiglobal_clip", "rotate_narrow", "tb_bits",
             "micro_passes")
+# launched on the mapping path only in batches with clip-rescued gapped
+# winners (map.pipeline.clip_tb_pass_device): a path without such reads
+# runs it 0 times
+ON_CLIP_ROWS = ("clip_tb",)
 # under end_clip every DP runs in clip mode (the clip-rescue lane is off)
 # and the device traceback is off (map.pipeline.tb_enabled)
-OFF_PATH_END_CLIP = OFF_PATH + ("banded_dp", "tb_dops")
+OFF_PATH_END_CLIP = OFF_PATH + ("banded_dp", "tb_dops", "clip_tb")

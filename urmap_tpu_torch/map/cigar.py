@@ -3,10 +3,11 @@
 Copies of what urmap_tpu/map/cigar.py's SAM paths run:
 M-only winners get "{len}M" and an NM from the ungapped score; gapped
 winners replay the device traceback records (MapResult.tb, kernel B6)
-in O(L); rows without valid records (lane overflow, a walk that left
-the band, stale score/pos/strand, clip-rescued rows, or the traceback
-off) re-run the banded DP with traceback in C++ (io.native),
-clip-rescued rows in clip mode. SAM records then come from
+in O(L), clip-rescued ones the clip traceback's (MapResult.clip_tb,
+kernels/clip_tb.py; io/native/replay.cpp); rows without valid records
+(lane overflow, a walk that left the band or a record, stale
+score/pos/strand, or the traceback off) re-run the DP with traceback in
+C++ (io.native), clip-rescued rows in clip mode. SAM records then come from
 io.sam_native.format_single_end / format_paired. The pure-Python path
 (``traceback``, ``cigars_nm_fast``, ``cigars_for_result``) serves
 PairedMapper.format_py and pair._ref_spans.
@@ -146,6 +147,73 @@ def _tb_decode_rows(genome, raw_codes, result, use: np.ndarray,
         tb["dops"], tb["cols"][ti], lens_u, genome,
         np.asarray(result.pos)[use], sub, raw=True)
     return blob, off, nm_u, span_u, okd
+
+
+def _clip_select(result, rows: np.ndarray, clip_rows):
+    """Clip-rescued rows among ``rows`` whose CIGAR can replay from the
+    clip traceback's records (MapResult.clip_tb): present there with the
+    SAME score, pos and strand as the final result, as _tb_select holds
+    B6's. Returns (sub_rows, clip_tb entry indices)."""
+    ctb = getattr(result, "clip_tb", None)
+    if ctb is None or clip_rows is None or rows.size == 0 \
+            or ctb["rows"].size == 0:
+        return rows[:0], np.zeros(0, np.int64)
+    rows = rows[np.asarray(clip_rows, bool)[rows]]
+    cr = ctb["rows"]
+    pi = np.minimum(np.searchsorted(cr, rows), cr.size - 1)
+    ok = cr[pi] == rows
+    ok &= ctb["score"][pi] == np.asarray(result.score)[rows]
+    ok &= ctb["pos"][pi] == np.asarray(result.pos)[rows]
+    ok &= ctb["strand"][pi] == np.asarray(result.strand)[rows]
+    return rows[ok], pi[ok]
+
+
+def _clip_decode_rows(genome, raw_codes, result, use: np.ndarray,
+                      ci: np.ndarray):
+    """Replay the clip traceback's records for rows ``use`` → (blob,
+    offsets, nm, span, good bool[n]), or None without the replay
+    library. A row is good where its records decode and the clip
+    traceback's score is at least the device's (as the host DP's check
+    in clip mode); the others go to the host DP."""
+    from urmap_tpu_torch.io.native import replay
+
+    ctb = result.clip_tb
+    lens_u = np.asarray(result.lengths)[use]
+    sub = strand_codes_subset(raw_codes[use],
+                              np.asarray(result.strand)[use], lens_u)
+    dec = replay.clip_replay_batch(ctb["recs"], ctb["cols"][ci], lens_u,
+                                   genome, np.asarray(result.pos)[use], sub)
+    if dec is None:
+        return None
+    (blob, off), nm_u, span_u, okd = dec
+    okd &= ctb["dp_score"][ci] >= np.asarray(result.score)[use]
+    return blob, off, nm_u, span_u, okd
+
+
+def _keep_replayed(rows, use, blob, off, nm_u, span_u, okd, nm, span,
+                   parts, handled, name) -> None:
+    """The rows of a replay whose records served them: their NM and
+    span, their CIGARs as one part, marked handled; counted as
+    ``rows.<name>`` and ``rows.<name>_failed`` (decoded, then sent to
+    the host DP)."""
+    good = np.nonzero(okd)[0]
+    trace.count(f"rows.{name}", int(good.size))
+    trace.count(f"rows.{name}_failed", int(use.size - good.size))
+    if good.size == 0:
+        return
+    guse = use[good]
+    nm[guse] = nm_u[good]
+    span[guse] = span_u[good]
+    if good.size == use.size:
+        gblob, goff = blob, off
+    else:
+        lnb = np.diff(off)
+        goff = np.zeros(good.size + 1, np.int64)
+        np.cumsum(lnb[good], out=goff[1:])
+        gblob = b"".join(blob[off[g] : off[g + 1]] for g in good)
+    sel = np.searchsorted(rows, guse)
+    parts.append((sel, gblob, goff))
+    handled[sel] = True
 
 
 # urmap_tpu/map/cigar.py:_clip_groups
@@ -352,12 +420,14 @@ def cigars_nm_blob(genome: np.ndarray, raw_codes: np.ndarray, result,
     the as-sequenced codes and reverse-complements only the gapped rows.
 
     Traced (utils/trace.py) as ``urmap.cigars`` of the result's batch,
-    with the children ``.replay`` (the device records decoded),
+    with the children ``.replay`` (B6's records decoded),
+    ``.clip_replay`` (the clip traceback's records decoded),
     ``.host_dp`` and ``.clip_dp`` (the host DP of the rows left, plain
     and clip mode), ``.interleave`` and ``.compose``; the counters
-    ``rows.replay``, ``rows.replay_failed`` (decoded, then sent to the
-    host DP), ``rows.host_dp`` and ``rows.clip_dp`` (each gapped row is
-    in one of replay, host_dp, clip_dp).
+    ``rows.replay``, ``rows.clip_replay``, ``rows.replay_failed`` and
+    ``rows.clip_replay_failed`` (decoded, then sent to the host DP),
+    ``rows.host_dp`` and ``rows.clip_dp`` (each gapped row is in one of
+    replay, clip_replay, host_dp, clip_dp).
     """
     from urmap_tpu_torch.io import native
 
@@ -393,33 +463,24 @@ def _cigars_nm_blob(lib, genome, raw_codes, result, sc, raw_lengths,
         parts = []           # (sel-within-rows, blob, offs) per group
         handled = np.zeros(rows.size, bool)
         if clip_open is None:
-            # device traceback bits: O(L) bit-walk decode for the rows
-            # the tb pass covered (pipeline.tb_pass_device); stale/
-            # band-escaped/overflow rows fall through to the DP below
+            # device traceback records: O(L) replay for the rows the tb
+            # pass (pipeline.tb_pass_device) and, for the clip-rescued
+            # rows, the clip traceback pass covered; stale/band-escaped/
+            # overflow rows fall through to the DP below
             use, ti = _tb_select(result, rows, clip_rows)
             if use.size:
                 with trace.span("urmap.cigars.replay"):
-                    blob, off, nm_u, span_u, okd = _tb_decode_rows(
-                        genome, raw_codes, result, use, ti)
-                    good = np.nonzero(okd)[0]
-                    trace.count("rows.replay", int(good.size))
-                    trace.count("rows.replay_failed",
-                                int(use.size - good.size))
-                    if good.size:
-                        guse = use[good]
-                        nm[guse] = nm_u[good]
-                        span[guse] = span_u[good]
-                        if good.size == use.size:
-                            gblob, goff = blob, off
-                        else:
-                            lnb = np.diff(off)
-                            goff = np.zeros(good.size + 1, np.int64)
-                            np.cumsum(lnb[good], out=goff[1:])
-                            gblob = b"".join(blob[off[g] : off[g + 1]]
-                                             for g in good)
-                        sel = np.searchsorted(rows, guse)
-                        parts.append((sel, gblob, goff))
-                        handled[sel] = True
+                    _keep_replayed(rows, use, *_tb_decode_rows(
+                        genome, raw_codes, result, use, ti), nm, span,
+                        parts, handled, "replay")
+            use, ci = _clip_select(result, rows, clip_rows)
+            if use.size:
+                with trace.span("urmap.cigars.clip_replay"):
+                    dec = _clip_decode_rows(genome, raw_codes, result, use,
+                                            ci)
+                    if dec is not None:
+                        _keep_replayed(rows, use, *dec, nm, span, parts,
+                                       handled, "clip_replay")
         groups = _clip_groups(result, sc, clip_open, clip_rows,
                               rows=rows[~handled])
         for grows, co in groups:

@@ -174,6 +174,8 @@ def map_pairs_device(tables: dict, r1: torch.Tensor, l1: torch.Tensor,
                                 sc=sc, gather_runner=gather_runner,
                                 dp_runner=dp_runner)
     words = c.pop("_words")
+    # the pair path keeps the host clip-mode traceback for clip rows
+    c.pop("_clip_rounds")
     c1 = {k: v[:B] for k, v in c.items()}
     c2 = {k: v[B:] for k, v in c.items()}
 

@@ -74,6 +74,7 @@ class MapResult:
     clipped: np.ndarray | None = None   # bool: clip-rescued row
     suspect: np.ndarray | None = None   # bool: saturated-evidence winner
     tb: dict | None = None              # device traceback (unpack_tb)
+    clip_tb: dict | None = None         # clip traceback (unpack_clip_tb)
     batch: int | None = None            # the batch id (utils/trace.py)
 
     @classmethod
@@ -235,9 +236,11 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     reference). Returns per-read candidate arrays [B, 2V] (forward
     candidates in columns [:V], reverse-complement in [V:]): pos, score,
     strand, valid, ungapped, span; and per read dp_ran, clipped, weak,
-    nsat; and ``_words``, the word planes of both strands (rpacked2,
+    nsat; ``_words``, the word planes of both strands (rpacked2,
     rnplane2 int32[2B, nw]: rows [0, B) forward, [B, 2B) reverse
-    complement), which the traceback pass reads again."""
+    complement), which the traceback passes read again; and
+    ``_clip_rounds``, the rounds the clip-rescue lane ran (a host int,
+    known from its loop's syncs)."""
     from urmap_tpu_torch import genome_pack as gpk
     from urmap_tpu_torch.kernels import (clip_rounds, dp_rounds, seed_slots,
                                          verify_rounds, vote)
@@ -402,6 +405,7 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     # reads still below the mapping threshold get one more bucketed DP
     # in end-clip mode; it touches only would-be-unmapped reads
     clipped_read = torch.zeros(B, dtype=torch.bool, device=dev)
+    rounds = 0
     if mcfg.clip_rescue and not mcfg.end_clip:
         frac = host_scalar(mcfg.min_score_frac, dev)
         min_sc = torch.ceil(frac * lengths.to(torch.float32)) \
@@ -432,7 +436,8 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
     return {"pos": pos_f, "score": scores_f, "strand": strands,
             "valid": valid_c, "ungapped": ungapped_f, "span": spans_f,
             "dp_ran": served, "clipped": clipped_read, "weak": weak,
-            "nsat": nsat, "_words": (rpacked2, rnplane2)}
+            "nsat": nsat, "_words": (rpacked2, rnplane2),
+            "_clip_rounds": rounds}
 
 
 def map_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
@@ -440,13 +445,16 @@ def map_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
                      packed_reads=None, tb: bool = False,
                      gather_runner=None, dp_runner=None) -> dict:
     """One batch → per-read calls with the weak and suspect MAPQ gates;
-    with ``tb`` also ``_tb``, the traceback matrix of tb_pass_device.
-    ``gather_runner``, ``dp_runner``: see candidates_batch_device."""
+    with ``tb`` also ``_tb``, the traceback matrix of tb_pass_device,
+    and, where the clip-rescue lane ran a round, ``_clip_tb``, the
+    matrix of clip_tb_pass_device. ``gather_runner``, ``dp_runner``: see
+    candidates_batch_device."""
     c = candidates_batch_device(tables, reads, lengths, icfg=icfg,
                                 mcfg=mcfg, sc=sc, packed_reads=packed_reads,
                                 gather_runner=gather_runner,
                                 dp_runner=dp_runner)
     words = c.pop("_words")
+    clip_ran = c.pop("_clip_rounds") > 0
     out = select_hits(c["pos"], c["score"], c["strand"], c["valid"],
                       lengths, c["ungapped"], mc=mcfg, k=icfg.k)
     out["dp_ran"] = c["dp_ran"]
@@ -467,12 +475,20 @@ def map_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
         out["mapq"].clamp(max=mcfg.suspect_mapq_cap), out["mapq"])
     out["suspect"] = sat & (deficit > remap_d)
     if tb:
+        from urmap_tpu_torch.kernels import clip_tb
+
         L = mcfg.max_read_len if reads is None else reads.shape[1]
-        # clip-rescued rows keep the host clip-mode traceback (rare)
+        # clip-rescued rows take the clip traceback below (B6's band
+        # cannot hold the host's clip-mode paths)
         gsel = out["mapped"] & out["gapped"] & ~out["clipped"]
         out["_tb"] = tb_pass_device(tables, out["pos"], out["strand"],
                                     lengths, gsel, *words, L=L, mcfg=mcfg,
                                     sc=sc)
+        if clip_ran and clip_tb.enabled(L, sc):
+            csel = out["gapped"] & out["clipped"]
+            out["_clip_tb"] = clip_tb_pass_device(
+                tables, out["pos"], out["strand"], out["score"], lengths,
+                csel, *words, L=L, mcfg=mcfg, sc=sc)
     return out
 
 
@@ -546,6 +562,113 @@ def tb_pass_device(tables: dict, pos: torch.Tensor, strand: torch.Tensor,
                         | (walk_ok.to(torch.int32) << 17) | (st << 18),
                         score, p], dim=0)
     return torch.cat([meta, dops], dim=0)
+
+
+# ---- the clip traceback pass (kernels/clip_tb.py) ----
+# The clip-rescued gapped winners are re-aligned by the clip traceback
+# over the host's clip-mode window (POS, read length + 48 bases, clamped
+# at the genome's end), and cigar.cigars_nm_blob replays its records in
+# O(L). Its matrix rides the same device-to-host copy, after the tb
+# matrix, in batches whose clip-rescue lane ran: rows 0-4 = meta (winner
+# row index; strand<<18 | ok<<17 | do<<16; the winner's score; its POS,
+# biased; the clip traceback's score), rows 5.. = the records, columns =
+# the C compacted winner lanes (tb_cols, as B6's).
+CLIP_META_ROWS = 5
+
+
+def clip_tb_rows(mcfg: MapConfig) -> int:
+    from urmap_tpu_torch.map.tb import dops_words
+
+    return CLIP_META_ROWS + dops_words(mcfg.max_read_len)
+
+
+def _compact(sel: torch.Tensor, C: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(_nonzero_padded(sel, C), lanes live by count) without a host
+    sync: the first C True indices of ``sel`` in order, padded with 0."""
+    n = sel.shape[0]
+    rank = torch.cumsum(sel.to(torch.int32), 0)
+    slot = torch.where(sel & (rank <= C), rank - 1, C)
+    idx = torch.zeros(C + 1, dtype=torch.int64, device=sel.device)
+    idx.scatter_(0, slot, torch.arange(n, device=sel.device))
+    do = torch.arange(C, device=sel.device) < rank[-1]
+    return idx[:C], do
+
+
+def clip_tb_pass_device(tables: dict, pos: torch.Tensor,
+                        strand: torch.Tensor, score: torch.Tensor,
+                        lengths_rows: torch.Tensor, gsel: torch.Tensor,
+                        rp2: torch.Tensor, rn2: torch.Tensor, *, L: int,
+                        mcfg: MapConfig, sc: ScoreConfig) -> torch.Tensor:
+    """Compact the clip-rescued gapped winners → windows at POS → the
+    clip traceback → one int32 matrix [CLIP_META_ROWS + DWp, C]; no host
+    sync. Arguments as tb_pass_device's, with ``score`` the winners'.
+    Winners beyond the C lanes, at a POS below 0, or whose path the
+    records cannot hold get ok 0 and go to the host DP."""
+    from urmap_tpu_torch import genome_pack as gpk
+    from urmap_tpu_torch.kernels import clip_tb
+    from urmap_tpu_torch.map.clip_tb import PAD
+
+    nrows = gsel.shape[0]
+    C = tb_cols(nrows, mcfg)
+    idx, do = _compact(gsel, C)
+    # fill lanes (do 0) take length 0: the kernel skips them
+    lens = torch.where(do, lengths_rows[idx], 0)
+    st = strand[idx].to(torch.int32)
+    row = idx + nrows * st
+    codes = gpk.unpack_words_to_codes(rp2[row], rn2[row], L)
+    p = torch.where(do, pos[idx].to(torch.int32), 0)
+    windows = gpk.gather_codes(tables["ginter"], tables["base_off"], p,
+                               L + PAD)
+    # the host's window: read length + 48 bases, cut at the genome's end
+    pl = p.to(torch.int64)
+    gend = tables["genome_max_biased"] + 1
+    widths = torch.minimum(lens.to(torch.int64) + PAD, gend - pl) \
+        .clamp(min=0).to(torch.int32)
+    dp_score, recs, ok = clip_tb.clip_tb(windows, codes, lens, widths,
+                                         sc=sc, clip_open=sc.clip_open)
+    ok = ok & (pl >= -POS_BIAS)
+    meta = torch.stack([idx.to(torch.int32),
+                        (do.to(torch.int32) << 16)
+                        | (ok.to(torch.int32) << 17) | (st << 18),
+                        score[idx].to(torch.int32), p, dp_score], dim=0)
+    return torch.cat([meta, recs], dim=0)
+
+
+def unpack_clip_tb(arr: np.ndarray) -> dict:
+    """Host reader of clip_tb_pass_device's matrix → the dict
+    cigar.cigars_nm_blob reads: the live lanes whose path the records
+    hold (rows, score, pos, strand as the winner had them, dp_score, and
+    their columns of ``recs``)."""
+    meta = arr[:CLIP_META_ROWS]
+    live = ((meta[1] >> 16) & 1).astype(bool) \
+        & ((meta[1] >> 17) & 1).astype(bool)
+    return {
+        "rows": meta[0][live].astype(np.int64),
+        "score": meta[2][live].astype(np.int32),
+        "pos": meta[3][live].astype(np.int64) + POS_BIAS,
+        "strand": ((meta[1] >> 18) & 1)[live].astype(np.int32),
+        "dp_score": meta[4][live].astype(np.int32),
+        "cols": np.nonzero(live)[0].astype(np.int32),
+        "recs": arr[CLIP_META_ROWS:],
+    }
+
+
+def merge_clip_tb(parts: list, row_offsets) -> dict | None:
+    """Per-batch clip dicts (None: a batch the pass did not run in) →
+    one dict over the concatenated result, rows re-based by each batch's
+    first row and columns by the matrices before it; None if no batch
+    had one."""
+    kept = [(p, o) for p, o in zip(parts, row_offsets) if p is not None]
+    if not kept:
+        return None
+    col_off = np.cumsum([0] + [p["recs"].shape[1] for p, _ in kept])
+    out = {k: np.concatenate([p[k] for p, _ in kept])
+           for k in ("score", "pos", "strand", "dp_score")}
+    out["rows"] = np.concatenate([p["rows"] + o for p, o in kept])
+    out["cols"] = np.concatenate([p["cols"] + c for (p, _), c
+                                  in zip(kept, col_off)]).astype(np.int32)
+    out["recs"] = np.concatenate([p["recs"] for p, _ in kept], axis=1)
+    return out
 
 
 # urmap_tpu/map/pipeline.py:merge_tb_batches
@@ -867,9 +990,12 @@ class Mapper:
             packed = pack_out(out)
             if self.tb:
                 # one array, one device-to-host copy; finish_batch splits
-                # it by the known sizes
+                # it by the known sizes (the clip matrix only where the
+                # clip-rescue lane ran)
                 packed = torch.cat([packed.reshape(-1),
-                                    out["_tb"].reshape(-1)])
+                                    out["_tb"].reshape(-1)]
+                                   + ([out["_clip_tb"].reshape(-1)]
+                                      if "_clip_tb" in out else []))
         return packed, B, batch
 
     def finish_batch(self, handle, lengths) -> MapResult:
@@ -877,18 +1003,24 @@ class Mapper:
         with trace.span("urmap.finish_batch", batch):
             arr = download(out)
             with trace.span("urmap.unpack"):
-                tbmat = None
+                tbmat = clipmat = None
                 if self.tb:
                     bs = self.mcfg.batch_size
+                    C = tb_cols(bs, self.mcfg)
                     split = bs * PACKED_COLS
-                    tbmat = arr[split:].reshape(tb_rows(self.mcfg),
-                                                tb_cols(bs, self.mcfg))
+                    end = split + tb_rows(self.mcfg) * C
+                    tbmat = arr[split:end].reshape(tb_rows(self.mcfg), C)
+                    if arr.size > end:
+                        clipmat = arr[end:].reshape(clip_tb_rows(self.mcfg),
+                                                    C)
                     arr = arr[:split].reshape(bs, PACKED_COLS)
                 merged = {k: v[:B] for k, v in unpack_out(arr).items()}
                 res = MapResult.from_device(merged, np.asarray(lengths)[:B])
                 if tbmat is not None:
                     res.tb = unpack_tb(tbmat, self.mcfg.band_halfwidth,
                                        self.mcfg.max_read_len)
+                if clipmat is not None:
+                    res.clip_tb = unpack_clip_tb(clipmat)
         res.batch = batch
         return res
 
@@ -911,4 +1043,6 @@ class Mapper:
         # keep the device traceback across the multi-batch merge, or
         # every gapped winner pays the host DP again
         res.tb = merge_tb_batches([o.tb for o in outs], range(0, B, bs))
+        res.clip_tb = merge_clip_tb([o.clip_tb for o in outs],
+                                    range(0, B, bs))
         return res
