@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from benchmark.gen.genome import COMP, draw_starts, valid_starts
+from benchmark.gen.genome import COMP, draw_starts
 from benchmark.gen.reads import CHUNK, exact_kinds, plant_indels, substitute
 
 NORMAL, INDEL, RESCUE, JUNK = 0, 1, 2, 3
@@ -35,7 +35,7 @@ def generate(seed: int, g: np.ndarray, params: dict) -> dict:
                                 params.get("rescue_share", 0.0),
                                 params.get("junk_share", 0.0)])
     frag = rng.integers(flo, fhi + 1, size=n)
-    fs = draw_starts(rng, valid_starts(g, fhi + 32), n)
+    fs = draw_starts(rng, g, fhi + 32, n)
     pos = np.stack([fs, fs + frag - L])          # left, right mate
     which = rng.integers(0, 2, size=n)           # the altered mate
     r1_left = rng.integers(0, 2, size=n).astype(bool)

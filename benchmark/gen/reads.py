@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from benchmark.gen.genome import COMP, draw_starts, valid_starts
+from benchmark.gen.genome import COMP, draw_starts
 
 NORMAL, INDEL, ADAPTER, JUNK = 0, 1, 2, 3
 
@@ -76,7 +76,7 @@ def generate(seed: int, g: np.ndarray, params: dict) -> dict:
     kind = exact_kinds(rng, n, [params.get("indel_share", 0.0),
                                 params.get("adapter_share", 0.0),
                                 params.get("junk_share", 0.0)])
-    pos = draw_starts(rng, valid_starts(g, L + hi_i + 8), n)
+    pos = draw_starts(rng, g, L + hi_i + 8, n)
     strand = rng.integers(0, 2, size=n).astype(np.int8)
     codes = np.empty((n, L), np.uint8)
     for s in range(0, n, CHUNK):

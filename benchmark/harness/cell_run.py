@@ -23,7 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from benchmark.gen.fastq import read_index, write_fastq
-from benchmark.gen.genome import genome_from_config, write_fasta
+from benchmark.gen.genome import Layout, genome_from_config, write_fasta
 from benchmark.harness import manifest
 from benchmark.harness.trace import Tracer, breakdown, busy_us
 from benchmark.harness.window import (Pool, in_window, run_window,
@@ -54,6 +54,7 @@ class World:
     """One configuration's genome, index and mapper."""
 
     genome: np.ndarray        # the benchmark's own codes (0-3, N = 4)
+    layout: Layout            # its contigs
     index: object
     mapper: object
     pmapper: object
@@ -67,8 +68,9 @@ def build_world(cfg: dict, seed: int, device, work: str,
         os.environ[k] = str(v)
     t = time.perf_counter()
     g = genome_from_config(seed, cfg)
+    layout = Layout.from_config(cfg)
     fa = os.path.join(work, "genome.fa")
-    write_fasta(fa, g, cfg["genome_label"])
+    write_fasta(fa, g, layout)
     times["genome_s"] = time.perf_counter() - t
 
     from urmap_tpu_torch import cli
@@ -98,7 +100,7 @@ def build_world(cfg: dict, seed: int, device, work: str,
         f" slots ({index.num_positions / 2**index.config.slot_bits:.4f} a "
         f"slot); tables row128={mapper.row128} "
         f"packed_offsets={mapper.off_bits is not None}")
-    return World(g, index, mapper, pmapper)
+    return World(g, layout, index, mapper, pmapper)
 
 
 def make_pool(cell, world: World, seed: int, work: str, times: dict):
@@ -145,7 +147,7 @@ def judge_sample(cell, world: World, data: dict, out, seed: int, device):
                 "score_gap": 0, "missed": 0, "missed_share": 0.0,
                 "truth_share": math.nan,
                 "why": ["no record committed in the window"]}
-    return judge(world.genome, cfg["genome_label"].encode(), np.stack(rows),
+    return judge(world.genome, world.layout, np.stack(rows),
                  lines, cfg, paired, np.asarray(truth), device=device)
 
 

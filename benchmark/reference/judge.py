@@ -4,7 +4,8 @@ timed window committed, judged by the plain reference.
 For each sampled read (each mate of a sampled pair) the reference
   1. holds the record to the SAM rules and to the read (reference/sam.py);
   2. finds the read's loci itself: every exact k-mer hit in its own index
-     of the genome (reference/kmers.py), on both strands, the record's
+     of the genome's k-mers that the sampled reads hold
+     (reference/kmers.py), on both strands, the record's
      own locus, and for a mate that finds none of its own, the window
      where its mate's best locus puts it (the fragment range);
   3. aligns the read at each locus (reference/align.py), end to end and
@@ -26,6 +27,9 @@ Numbers compared (each with its limit in the configuration's ``check``):
                    window): reads the timed path left out. Its limit
                    is in the traffic's file, as the mix sets how many
                    reads are hard to place.
+Positions are offsets in the benchmark's genome array (gen/genome.py
+``Layout``: the contigs one after the other, N between them); a record's
+(RNAME, POS) is turned into one.
 Printed beside them, not compared: ``missed`` (the same as a count),
 ``truth_share`` (mapped records at their planted start,
 tools/check_sam_truth.py's measure) and ``sampled``.
@@ -38,7 +42,7 @@ import math
 import numpy as np
 import torch
 
-from benchmark.gen.genome import COMP, GENOME_N
+from benchmark.gen.genome import COMP, GENOME_N, SEPARATOR, Layout
 from benchmark.reference.align import NEG, best_scores
 from benchmark.reference.kmers import KmerIndex, clusters
 from benchmark.reference.sam import Rec, check_own, check_pair, min_score
@@ -99,25 +103,30 @@ def mapq_rule(best: int, second: int, calls: dict) -> int:
     return int(min(max(np.round(q), 0), calls["max_mapq"]))
 
 
-def judge(genome, label: bytes, reads: np.ndarray, lines: list[bytes],
+def judge(genome, layout: Layout, reads: np.ndarray, lines: list[bytes],
           cfg: dict, paired: bool, truth_pos: np.ndarray | None = None,
           device="cpu") -> dict:
     """reads: uint8[n, L] as sequenced, one row per record (for pairs
     mate 1 and mate 2 of a pair next to each other: rows 2p, 2p + 1);
-    lines: the records, in the same order. → the numbers."""
+    lines: the records, in the same order; truth_pos: offsets in the
+    array. → the numbers."""
     sc, calls = cfg["scores"], cfg["calls"]
     n, L = reads.shape
+    if (paired and len(layout.names) > 1
+            and calls["fragment"][1] + 2 * MARGIN > SEPARATOR):
+        raise ValueError("a mate's fragment window would reach past the "
+                         "N between two contigs")
     recs = [Rec(read=reads[i], fields=ln.rstrip(b"\n").split(b"\t"))
             for i, ln in enumerate(lines)]
     for r in recs:
-        check_own(r, genome, label, sc, calls, paired)
+        check_own(r, genome, layout, sc, calls, paired)
     if paired:
         for p in range(0, n, 2):
             check_pair(recs[p], recs[p + 1], calls["fragment"])
     oriented = np.stack([reads, COMP[reads[:, ::-1]]], axis=1)
     k = cfg["check"]["k"]
     dev = torch.device(device)
-    index = KmerIndex(genome, k, dev)
+    index = KmerIndex(genome, k, dev, torch.from_numpy(oriented))
     jobs = Jobs()
     for strand in (0, 1):
         rows, diags = index.diagonals(torch.from_numpy(oriented[:, strand]))

@@ -1,6 +1,14 @@
-"""The reference's own index: every N-free k-mer of the genome, exactly,
-sorted by its 2-bit code. It is worked out again from the genome the
-benchmark made, and shares nothing with the program's hashed index.
+"""The reference's own index: every genome position of each N-free
+k-mer that the sampled reads hold (on either strand), exactly, sorted by
+its 2-bit code and then by position. It is worked out again from the
+genome the benchmark made, and shares nothing with the program's hashed
+index. The genome is scanned a chunk at a time, so the card holds one
+chunk's codes, not the whole genome's.
+
+One departure from an index sorted by code alone: where a k-mer has
+more than ``cap`` hits, ``diagonals`` takes the ``cap`` lowest
+positions (before, whichever the sort put first; on the benchmark's
+random genomes no 24-mer has that many copies).
 
 Plain PyTorch (CPU or CUDA).
 """
@@ -9,6 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+CHUNK = 1 << 27     # genome bases scanned at a time
 
 
 def kmer_codes(codes: torch.Tensor, k: int):
@@ -20,20 +30,35 @@ def kmer_codes(codes: torch.Tensor, k: int):
     bad = torch.zeros(out.shape, dtype=torch.bool, device=codes.device)
     for t in range(k):
         c = codes[..., t : t + m]
-        out = out * 4 + (c & 3).to(torch.int64)
+        out.mul_(4).add_(c & 3)
         bad |= c > 3
     return out, ~bad
 
 
 class KmerIndex:
-    """Exact positions of every N-free k-mer of ``genome``."""
+    """Exact positions of the N-free k-mers of ``genome`` that ``reads``
+    (uint8[..., L], each strand as it will be looked up) hold."""
 
-    def __init__(self, genome: np.ndarray, k: int, device):
-        g = torch.from_numpy(np.ascontiguousarray(genome)).to(device)
-        code, ok = kmer_codes(g, k)
-        pos = torch.nonzero(ok)[:, 0]
-        self.codes, order = torch.sort(code[pos])
-        self.pos = pos[order]
+    def __init__(self, genome: np.ndarray, k: int, device,
+                 reads: torch.Tensor, chunk: int = CHUNK):
+        code, ok = kmer_codes(reads.to(device), k)
+        want = torch.unique(code[ok])            # sorted
+        codes, pos = [], []
+        for c0 in range(0, genome.size - k + 1 if want.numel() else 0,
+                        chunk):
+            piece = torch.from_numpy(genome[c0 : c0 + chunk + k - 1])
+            code, ok = kmer_codes(piece.to(device), k)
+            at = torch.searchsorted(want, code).clamp_(max=want.numel() - 1)
+            p = torch.nonzero(ok & (want[at] == code))[:, 0]
+            codes.append(code[p])
+            pos.append(p + c0)
+            del piece, code, ok, at     # before the next chunk's
+        empty = torch.zeros(0, dtype=torch.int64, device=device)
+        code = torch.cat(codes) if codes else empty
+        # positions ascend chunk after chunk: a stable sort by code
+        # leaves each code's positions ascending
+        self.codes, order = torch.sort(code, stable=True)
+        self.pos = (torch.cat(pos) if pos else empty)[order]
         self.k = k
         self.device = device
 

@@ -2,12 +2,15 @@
 wrote, held to the SAM rules and to the read it was given.
 
 Everything a record states about itself must agree: its flags, its
-coordinates, its SEQ and QUAL against the read the benchmark made, its
-CIGAR against the genome (the read consumed whole, NM recounted, AS
+coordinates (RNAME a contig of the configuration, POS within it), its
+SEQ and QUAL against the read the benchmark made, its CIGAR against the
+contig (the read consumed whole inside it, NM recounted, AS
 equal to the CIGAR's score, or at most it where the ends are
 clipped), AS at or above the mapping floor, MAPQ in range; for a pair
 also the mate fields against the mate's record (flags 0x8 and 0x20,
-RNEXT, PNEXT, TLEN from the two alignments' spans, 0x2 only on two
+RNEXT ``=`` where the mates share a contig and the mate's RNAME
+otherwise, PNEXT, TLEN from the two alignments' spans on one contig and
+0 across two, 0x2 only on two
 mapped mates, and on two unclipped mates exactly where they lie in FR
 orientation inside the configuration's fragment range). NumPy only.
 """
@@ -19,7 +22,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from benchmark.gen.genome import CHARS, COMP
+from benchmark.gen.genome import CHARS, COMP, Layout
 from benchmark.reference.align import cigar_score, parse_cigar
 
 PAIRED, PROPER, UNMAPPED, MATE_UNMAPPED = 0x1, 0x2, 0x4, 0x8
@@ -35,7 +38,8 @@ class Rec:
     flag: int = 0
     mapped: bool = False
     strand: int = 0
-    pos0: int = -1            # 0-based leftmost aligned base
+    contig: int = -1          # the RNAME's contig in the layout
+    pos0: int = -1            # leftmost aligned base, offset in the array
     diag: int = 0             # pos0 less the leading clip
     mapq: int = 0
     score: int = 0            # the CIGAR's own score
@@ -52,7 +56,7 @@ def min_score(calls: dict, length: int) -> int:
     return math.ceil(calls["min_score_frac"] * length)
 
 
-def check_own(rec: Rec, genome: np.ndarray, label: bytes, sc: dict,
+def check_own(rec: Rec, genome: np.ndarray, layout: Layout, sc: dict,
               calls: dict, paired: bool) -> None:
     """The rules one record keeps on its own; sets ``rec.why`` on the
     first it breaks and fills the derived fields."""
@@ -90,21 +94,24 @@ def check_own(rec: Rec, genome: np.ndarray, label: bytes, sc: dict,
         elif not paired and (f[2] != b"*" or pos != 0):
             rec.why = "RNAME or POS on an unmapped read"
         return
-    if f[2] != label or pos < 1:
+    c = layout.index(f[2])
+    if c is None or pos < 1:
         rec.why = "RNAME or POS off the genome"
         return
+    rec.contig = c
     if not 0 <= mapq <= calls["max_mapq"]:
         rec.why = f"MAPQ {mapq} out of range"
         return
     ops = parse_cigar(f[5])
-    got = None if ops is None else cigar_score(ops, rec.oriented(), genome,
-                                               pos - 1, sc)
+    s, n = int(layout.starts[c]), int(layout.lengths[c])
+    got = None if ops is None else cigar_score(ops, rec.oriented(),
+                                               genome[s : s + n], pos - 1, sc)
     if got is None:
         rec.why = "CIGAR does not fit the read at POS"
         return
     rec.score, nm, rec.span, rec.clips = got
     rec.fits = True
-    rec.pos0 = pos - 1
+    rec.pos0 = s + pos - 1
     rec.diag = rec.pos0 - (ops[0][0] if ops[0][1] == b"S" else 0)
     tags = {t[:2]: t[5:] for t in f[11:] if len(t) > 5}
     try:
@@ -127,7 +134,8 @@ def fr_proper(r1: Rec, r2: Rec, fragment) -> bool:
     strands, the forward mate's start at or before the reverse mate's,
     and from the one to the end of the other (the reverse mate's start
     plus its CIGAR's span) within [lo, hi]."""
-    if not (r1.mapped and r2.mapped) or r1.strand == r2.strand:
+    if (not (r1.mapped and r2.mapped) or r1.strand == r2.strand
+            or r1.contig != r2.contig):
         return False
     fwd, rev = (r1, r2) if r1.strand == 0 else (r2, r1)
     tl = rev.pos0 - fwd.pos0 + rev.span
@@ -165,7 +173,7 @@ def check_pair(r1: Rec, r2: Rec, fragment) -> None:
         elif not me.mapped and not mate.mapped and (f[2] != b"*"
                                                     or f[3] != b"0"):
             me.why = "RNAME or POS on an unmapped pair"
-        elif f[6] != (b"=" if me.mapped or mate.mapped else b"*"):
+        elif f[6] != rnext(me, mate):
             me.why = "RNEXT wrong"
         elif int(f[7]) != (int(mf[3]) if mate.mapped
                            else int(f[3]) if me.mapped else 0):
@@ -175,11 +183,22 @@ def check_pair(r1: Rec, r2: Rec, fragment) -> None:
                      f"{tlen(me, mate, bit == FIRST)}"
 
 
+def rnext(me: Rec, mate: Rec) -> bytes:
+    """RNEXT of ``me`` (SAM v1.6): ``*`` with no mate mapped, the mate's
+    RNAME where both are mapped on two contigs, else ``=`` (an unmapped
+    mate sits at its mate's place)."""
+    if not (me.mapped or mate.mapped):
+        return b"*"
+    if me.mapped and mate.mapped and me.contig != mate.contig:
+        return mate.fields[2]
+    return b"="
+
+
 def tlen(me: Rec, mate: Rec, first: bool) -> int:
-    """TLEN of ``me``: the outer span of two mapped mates, positive on
-    the leftmost (R1 on a tie of starts when its end is not past the
-    mate's), else 0."""
-    if not (me.mapped and mate.mapped):
+    """TLEN of ``me``: the outer span of two mapped mates on one contig,
+    positive on the leftmost (R1 on a tie of starts when its end is not
+    past the mate's), else 0."""
+    if not (me.mapped and mate.mapped) or me.contig != mate.contig:
         return 0
     r1, r2 = (me, mate) if first else (mate, me)
     s1, e1 = r1.pos0, r1.pos0 + r1.span

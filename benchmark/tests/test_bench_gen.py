@@ -5,7 +5,8 @@ import numpy as np
 
 from benchmark.gen import pairs, reads
 from benchmark.gen.fastq import read_index, write_fastq
-from benchmark.gen.genome import COMP, genome_from_config, valid_starts
+from benchmark.gen.genome import (COMP, draw_starts, free_runs,
+                                  genome_from_config)
 from benchmark.tests.conftest import TINY
 
 SE = {"reads": 4000, "read_len": 150, "snp_rate": 0.01, "indel_share": 0.08,
@@ -77,8 +78,9 @@ def test_pairs_geometry_and_rescue_mates():
 
 def test_valid_starts_avoid_n():
     g = np.array([0, 1, 4, 2, 3, 0, 1], np.uint8)
-    assert valid_starts(g, 3).tolist() == [False, False, False, True, True,
-                                           False, False]
+    assert [r.tolist() for r in free_runs(g)] == [[0, 3], [2, 7]]
+    got = draw_starts(np.random.default_rng(1), g, 3, 200)
+    assert set(got.tolist()) == {3, 4}
 
 
 def test_fastq_records_round_trip(tmp_path):

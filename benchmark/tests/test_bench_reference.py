@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.gen.genome import CHARS, COMP
+from benchmark.gen.genome import CHARS, COMP, Layout
 from benchmark.reference.align import (NEG, best_scores, cigar_score,
                                        parse_cigar)
 from benchmark.reference.judge import judge, mapq_rule
@@ -90,8 +90,8 @@ def test_cigar_score_by_hand():
 
 def test_kmer_index_and_clusters():
     g = np.random.default_rng(4).integers(0, 4, 5000).astype(np.uint8)
-    idx = KmerIndex(g, 24, torch.device("cpu"))
     read = np.concatenate([g[1000:1060], g[1064:1154]])   # 4 bp deletion
+    idx = KmerIndex(g, 24, torch.device("cpu"), torch.from_numpy(read[None]))
     rows, diags = idx.diagonals(torch.from_numpy(read[None]))
     r, lo, hi = clusters(rows, diags, 32)
     assert r.tolist() == [0] and lo[0] == 1000 and hi[0] == 1004
@@ -125,28 +125,29 @@ def test_judge_holds_records_to_the_reference():
         reads.append(read)
         lines.append(se_record(b"r%09d" % i, read, p, strand, g))
     reads = np.stack(reads)
-    ok = judge(g, b"chr21", reads, lines, CFG, paired=False)
+    one = Layout.of([("chr21", g.size)])
+    ok = judge(g, one, reads, lines, CFG, paired=False)
     assert (ok["bad_records"], ok["mapq_off"], ok["score_gap"]) == (0, 0, 0)
     # one answer altered where it was made: POS one base off
     f = lines[2].split(b"\t")
     f[3] = b"%d" % (int(f[3]) + 1)
-    bad = judge(g, b"chr21", reads, lines[:2] + [b"\t".join(f)] + lines[3:],
+    bad = judge(g, one, reads, lines[:2] + [b"\t".join(f)] + lines[3:],
                 CFG, paired=False)
     assert bad["bad_records"] == 1
     # a worse alignment written consistently: an all-M CIGAR shifted by
     # one base scores far below the read's best (and below the floor)
     shifted = se_record(b"r%09d" % 4, reads[4], 1000 + 2000 * 4 + 1, 0, g)
-    worse = judge(g, b"chr21", reads, lines[:4] + [shifted] + lines[5:],
+    worse = judge(g, one, reads, lines[:4] + [shifted] + lines[5:],
                   CFG, paired=False)
     assert worse["score_gap"] > 100
     # an overconfident MAPQ
     low = lines[:1] + [se_record(b"r%09d" % 1, reads[1], 3000, 1, g,
                                  mapq=7)] + lines[2:]
-    assert judge(g, b"chr21", reads, low, CFG, paired=False)["mapq_off"] == 1
+    assert judge(g, one, reads, low, CFG, paired=False)["mapq_off"] == 1
     # a read left out: written unmapped though the reference places it
     f = [b"r%09d" % 3, b"4", b"*", b"0", b"0", b"*", b"*", b"0", b"0",
          CHARS[reads[3]].tobytes(), b"I" * 150]
-    out = judge(g, b"chr21", reads, lines[:3] + [b"\t".join(f) + b"\n"]
+    out = judge(g, one, reads, lines[:3] + [b"\t".join(f) + b"\n"]
                 + lines[4:], CFG, paired=False)
     assert (out["bad_records"], out["missed"]) == (0, 1)
     assert out["missed_share"] == 1 / 6
