@@ -315,6 +315,50 @@ def test_cuda_mapper_clip_tb_matches_cpu_mapper(cuda_device):
                           clip_rows=got.clipped)[0] == blob[0]
 
 
+def test_cuda_end_clip_mapper_clip_tb_matches_cpu_mapper(cuda_device):
+    """Under end_clip every mapped gapped winner (indels and adapter
+    tails) takes the clip traceback on the card in place of B6: results
+    and live records equal the CPU Mapper's, and the CIGARs replayed
+    from them equal the host clip DP's."""
+    from urmap_tpu_torch.kernels import clip_tb, tb_dp
+    from urmap_tpu_torch.map.cigar import cigars_nm_blob
+
+    rng = np.random.default_rng(6)
+    db = make_seqdb(rng, [200_000])
+    reads = []
+    for i in range(512):
+        r = plant_read(rng, db, n_snps=1, dels=3 if i % 4 == 1 else 0,
+                       ins=2 if i % 4 == 2 else 0)
+        if i % 3 == 0:
+            t = int(rng.integers(30, 76))
+            r.codes = r.codes.copy()
+            r.codes[150 - t :] = rng.integers(0, 4, t)
+        reads.append(r)
+    codes = np.stack([r.codes for r in reads])
+    lengths = np.full(len(reads), 150, np.int32)
+    idx = build_index(db, backend="host")
+    mcfg = MapConfig(batch_size=256, end_clip=True)
+    clip_tb.counter.reset()
+    tb_dp.counter.reset()
+    got = Mapper(idx, mcfg, device=cuda_device).map_codes(codes, lengths)
+    assert clip_tb.counter.launches == 2 and tb_dp.counter.launches == 0
+    assert clip_tb.counter.plain_calls == 0
+    want = Mapper(idx, mcfg, device="cpu").map_codes(codes, lengths)
+    for f in ("mapped", "pos", "strand", "score", "mapq", "gapped"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    grow = np.nonzero(got.gapped & got.mapped)[0]
+    assert grow.size > 200
+    np.testing.assert_array_equal(got.clip_tb["rows"], grow)
+    for k in got.clip_tb:
+        a, b = got.clip_tb[k], want.clip_tb[k]
+        if k == "recs":
+            a, b = a[:, got.clip_tb["cols"]], b[:, want.clip_tb["cols"]]
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    blob = cigars_nm_blob(db.codes, codes, got, ScoreConfig())
+    got.clip_tb = None
+    assert cigars_nm_blob(db.codes, codes, got, ScoreConfig())[0] == blob[0]
+
+
 def fused_fetch_inputs(seed, n, length, two_d):
     """numpy inputs of the fused genome fetches: an interleaved table
     of packed planes (1-D, or its [R, 128] view), base starts that are
@@ -1272,13 +1316,13 @@ def test_micro_passes_kernel_matches_plain(cuda_device, shape):
         torch.ops.urmap.micro_passes(x, -1)
 
 
-@pytest.mark.parametrize("path", ["single", "paired", "clip"])
+@pytest.mark.parametrize("path", ["single", "paired", "clip", "endclip"])
 def test_every_card_sync_lies_in_a_sync_span(cuda_device, path):
     """One batch under set_sync_debug_mode("warn"), tracing on: each
     synchronizing operation the card reports warns inside its own
     ``urmap.sync`` span, and ``host_syncs`` counts them all (single-end,
     pairs with rescue-only mates, single-end with adapter tails for the
-    clip-rescue lane)."""
+    clip-rescue lane, and the same under end_clip)."""
     import warnings
 
     from urmap_tpu_torch.map.pair import PairedMapper
@@ -1287,7 +1331,8 @@ def test_every_card_sync_lies_in_a_sync_span(cuda_device, path):
     rng = np.random.default_rng(12)
     db = make_seqdb(rng, [300_000])
     mapper = Mapper(build_index(db, backend="host"),
-                    MapConfig(batch_size=512), device=cuda_device)
+                    MapConfig(batch_size=512, end_clip=path == "endclip"),
+                    device=cuda_device)
     if path == "paired":
         pairs = [plant_pair(rng, db, length=150,
                             frag=int(rng.integers(250, 600)),
@@ -1305,7 +1350,7 @@ def test_every_card_sync_lies_in_a_sync_span(cuda_device, path):
                             ins=int(rng.integers(0, 2)) * 4)
                  for _ in range(512)]
         codes = np.stack([r.codes for r in reads])
-        if path == "clip":
+        if path in ("clip", "endclip"):
             codes[::8, 85:] = rng.integers(0, 4, (64, 65))
         ln = np.full(len(reads), 150, np.int32)
 

@@ -196,3 +196,41 @@ def test_make_mesh_in_a_world_of_one(world_of_one):
     mh.barrier("alone")                 # a no-op for one rank
     assert [tsh._largest_pow2_divisor(n) for n in (1, 4, 6, 8, 12)] == \
         [1, 4, 2, 8, 4]
+
+
+@pytest.mark.parametrize("route", ["a2a", "psum"])
+def test_end_clip_sharded_mapper_in_a_world_of_one(world_of_one, tmp_path,
+                                                   route):
+    """Under end_clip the ShardedMapper of a 1 x 1 mesh gives the single
+    Mapper's results, clip mode and clip traceback records (B6 off), and
+    cigars_nm_blob the same bytes for both, without clip_open."""
+    from tests.utils import make_seqdb, plant_read
+    from urmap_tpu_torch.config import IndexConfig, MapConfig
+    from urmap_tpu_torch.index import build_index
+    from urmap_tpu_torch.map import Mapper
+    from urmap_tpu_torch.map.cigar import cigars_nm_blob
+
+    rng = np.random.default_rng(23)
+    db = make_seqdb(rng, [120_000])
+    idx = build_index(db, IndexConfig(slot_bits=15), backend="host")
+    L, n = 150, 64
+    codes = np.stack([plant_read(rng, db, length=L, n_snps=1,
+                                 dels=3 if i % 3 == 0 else 0).codes
+                      for i in range(n)])
+    codes[1::3, L - 70 :] = rng.integers(0, 4, (len(codes[1::3]), 70))
+    lengths = np.full(n, L, np.int32)
+    mcfg = MapConfig(max_read_len=L, batch_size=n, end_clip=True)
+    want = Mapper(idx, mcfg, device="cpu").map_codes(codes, lengths)
+    sm = tsh.ShardedMapper(idx, tsh.make_mesh(), mcfg, route=route,
+                           device="cpu")
+    assert sm._clip and not sm.tb
+    got = sm.map_codes(codes, lengths)
+    for f in ("mapped", "pos", "strand", "score", "mapq", "gapped",
+              "clipped"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.clip_open == want.clip_open == sm.sc.clip_open
+    assert got.tb is None and (got.mapped & got.gapped).sum() >= n // 3
+    for k in ("rows", "score", "pos", "strand", "dp_score"):
+        np.testing.assert_array_equal(got.clip_tb[k], want.clip_tb[k])
+    a, b = (cigars_nm_blob(db.codes, codes, r, sm.sc) for r in (got, want))
+    assert a[0] == b[0]

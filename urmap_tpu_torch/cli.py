@@ -420,7 +420,6 @@ def cmd_map(opts: dict, device="cuda") -> int:
     resume = bool(opts.get("resume"))
 
     genome = index.seqdb.codes
-    clip_open = mapper.sc.clip_open if mcfg.end_clip else None
     selfcheck = bool(opts.get("selfcheck"))
 
     def _selfcheck_batch(codes, res):
@@ -552,12 +551,10 @@ def cmd_map(opts: dict, device="cuda") -> int:
             if native:
                 c1, e1, sp1 = _cig3(cigars_nm_blob(
                     genome, fwd.codes, res.m1, mapper.sc,
-                    raw_lengths=fwd.seq_len, clip_open=clip_open,
-                    clip_rows=res.m1.clipped))
+                    raw_lengths=fwd.seq_len, clip_rows=res.m1.clipped))
                 c2, e2, sp2 = _cig3(cigars_nm_blob(
                     genome, rev.codes, res.m2, mapper.sc,
-                    raw_lengths=rev.seq_len, clip_open=clip_open,
-                    clip_rows=res.m2.clipped))
+                    raw_lengths=rev.seq_len, clip_rows=res.m2.clipped))
                 data = sam_native.format_paired(
                     fwd, rev, res, c1, e1, sp1, c2, e2, sp2, index.seqdb)
             else:
@@ -575,8 +572,7 @@ def cmd_map(opts: dict, device="cuda") -> int:
         if native:
             cig, nm, _span = _cig3(cigars_nm_blob(
                 genome, batch.codes, res, mapper.sc,
-                raw_lengths=batch.seq_len, clip_open=clip_open,
-                clip_rows=res.clipped))
+                raw_lengths=batch.seq_len, clip_rows=res.clipped))
             data = sam_native.format_single_end(batch, res, cig, nm,
                                                 index.seqdb)
         else:
@@ -584,7 +580,7 @@ def cmd_map(opts: dict, device="cuda") -> int:
             cigars, nms = cigars_for_result(
                 genome, strand_codes, res, mapper.sc,
                 raw_lengths=[len(sq) for sq in batch.seqs],
-                clip_open=clip_open, clip_rows=res.clipped)
+                clip_open=res.clip_open, clip_rows=res.clipped)
             recs = samio.records_single_end(batch, res, cigars, nms,
                                             index.seqdb)
             data = ("\n".join(recs) + "\n").encode("ascii")

@@ -41,7 +41,8 @@ psum route the rows of data row d are replicated over its index ranks
 and only index 0 returns them.
 
 The device traceback runs on every rank over its rows, wherever
-tb_enabled holds; the records rebase to global rows as in the
+tb_enabled holds, and so does the clip traceback, wherever
+clip_tb_enabled holds; the records rebase to global rows as in the
 reference's _merge_tb / _merge_tb_pairs. (The reference turns it off
 under multi-host; the SAM bytes are the same either way.)
 
@@ -62,9 +63,10 @@ import torch.distributed as dist
 
 from urmap_tpu_torch.config import MapConfig, ScoreConfig
 from urmap_tpu_torch.index.store import UfiIndex
-from urmap_tpu_torch.kernels import clip_tb
 from urmap_tpu_torch.map.dp import banded_packed
 from urmap_tpu_torch.map.pipeline import (PACKED_COLS, MapResult,
+                                          clip_mode, clip_tb_cols,
+                                          clip_tb_enabled, clip_tb_past,
                                           clip_tb_rows,
                                           map_batch_device, merge_clip_tb,
                                           pack_out, refuse_beyond_card,
@@ -411,7 +413,7 @@ def _psum_dp_runner(ginter, base_off: int, *, mcfg: MapConfig,
             ginter, base_off, flat_cand[lanes], flat_reads[lanes],
             flat_lens[lanes], flat_rp[lanes], flat_rn[lanes],
             hw=mcfg.band_halfwidth, sc=sc,
-            clip_open=sc.clip_open if mcfg.end_clip else None)
+            clip_open=clip_mode(mcfg, sc))
         got = comm.all_gather(torch.stack(outs).T.contiguous(),
                               comm.mesh.index_group)        # [S*chunk, 4]
         return tuple(got[:n, j] for j in range(4))
@@ -578,8 +580,8 @@ class ShardedMapper:
         # the clip traceback's matrix rides every single-end batch's
         # output (lanes with do 0 where this rank's clip lane ran no
         # round): the all-gather takes one size from every rank
-        self._clip = self.tb and clip_tb.enabled(self.mcfg.max_read_len,
-                                                 self.sc)
+        self._clip = clip_tb_enabled(self.mcfg, self.sc)
+        self.clip_open = clip_mode(self.mcfg, self.sc)
         self._runners = _make_runners(self.tables, route=route,
                                       sps=self._sps, mcfg=self.mcfg,
                                       sc=self.sc, a2a_slack=self.a2a_slack,
@@ -626,6 +628,7 @@ class ShardedMapper:
         out = map_batch_device(self.tables, None, ln, icfg=self.icfg,
                                mcfg=self.mcfg, sc=self.sc,
                                packed_reads=(pk, nm), tb=self.tb,
+                               clip_tb=self._clip,
                                gather_runner=gr, dp_runner=dr)
         packed = pack_out(out).reshape(-1)
         if self.tb:
@@ -634,7 +637,8 @@ class ShardedMapper:
             cm = out.get("_clip_tb")
             if cm is None:
                 cm = torch.zeros((clip_tb_rows(self.mcfg),
-                                  tb_cols(self._rps(self._bs), self.mcfg)),
+                                  clip_tb_cols(self._rps(self._bs),
+                                               self.mcfg)),
                                  dtype=torch.int32, device=self.device)
             packed = torch.cat([packed, cm.reshape(-1)])
         return packed, B
@@ -667,7 +671,7 @@ class ShardedMapper:
         None."""
         if not self._clip:
             return None
-        C = tb_cols(tb_nrows, self.mcfg)
+        C = clip_tb_cols(tb_nrows, self.mcfg)
         nr = clip_tb_rows(self.mcfg)
         mats = arr[:, arr.shape[1] - nr * C :].reshape(arr.shape[0], nr, C)
         return np.concatenate(list(mats), axis=1)
@@ -675,7 +679,7 @@ class ShardedMapper:
     def _merge_clip(self, arr: np.ndarray, rows_per_shard: int) -> dict:
         """Per-shard clip blocks → one dict with global rows and columns
         (shard s owns batch rows [s*rps, (s+1)*rps), as _merge_tb)."""
-        Cl = tb_cols(rows_per_shard, self.mcfg)
+        Cl = clip_tb_cols(rows_per_shard, self.mcfg)
         nsh = arr.shape[1] // Cl
         return merge_clip_tb(
             [unpack_clip_tb(arr[:, s * Cl : (s + 1) * Cl])
@@ -715,12 +719,14 @@ class ShardedMapper:
         got = self._gather_owners(out)
         rows, tbmat = self._split(got, rps, PACKED_COLS, rps)
         merged = {k: v[:B] for k, v in unpack_out(rows).items()}
-        res = MapResult.from_device(merged, np.asarray(lengths)[:B])
+        res = MapResult.from_device(merged, np.asarray(lengths)[:B],
+                                    self.clip_open)
         if tbmat is not None:
             res.tb = self._merge_tb(tbmat, rps)
         clipmat = self._clip_mats(got, rps)
         if clipmat is not None:
             res.clip_tb = self._merge_clip(clipmat, rps)
+            clip_tb_past(res, self.mcfg, clip_tb_cols(rps, self.mcfg), rps)
         return res
 
     def _local_rows(self, B: int, rows: int):
@@ -744,13 +750,14 @@ class ShardedMapper:
         arr = out.cpu().numpy()[None]
         packed, tbmat = self._split(arr, rps, PACKED_COLS, rps)
         res = MapResult.from_device(unpack_out(packed[: rows.size]),
-                                    np.asarray(lengths)[rows])
+                                    np.asarray(lengths)[rows], self.clip_open)
         if tbmat is not None and rows.size:
             res.tb = unpack_tb(tbmat, self.mcfg.band_halfwidth,
                                self.mcfg.max_read_len)
         clipmat = self._clip_mats(arr, rps)
         if clipmat is not None and rows.size:
             res.clip_tb = unpack_clip_tb(clipmat)
+            clip_tb_past(res, self.mcfg, clipmat.shape[1], rps)
         return res, rows
 
     def map_codes(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:
@@ -770,7 +777,8 @@ class ShardedMapper:
                   for f in ("mapped", "pos", "strand", "score", "second",
                             "mapq", "gapped", "ungapped", "clipped",
                             "suspect")}
-        res = MapResult(lengths=np.asarray(lengths)[:B], **merged)
+        res = MapResult(lengths=np.asarray(lengths)[:B],
+                        clip_open=self.clip_open, **merged)
         res.tb = merge_tb_batches([o.tb for o in outs],
                                   range(0, B, self._bs))
         res.clip_tb = merge_clip_tb([o.clip_tb for o in outs],
@@ -797,6 +805,7 @@ class ShardedPairedMapper:
         # mesh-even by ShardedMapper._bs
         self.pair_batch = mapper._bs // 2
         self.tb = mapper.tb
+        self.clip_open = mapper.clip_open
         self.stats = {"rescue_rounds": 0, "batches": 0}
         # the single-card host side, bound to this object: the upload
         # prep at pair_batch, the batch loop, the formatter and the
@@ -830,9 +839,11 @@ class ShardedPairedMapper:
         C = PACKED_COLS
         return PairResult(
             m1=MapResult.from_device(unpack_out(arr[:, 0:C]),
-                                     np.asarray(lengths1)[rows]),
+                                     np.asarray(lengths1)[rows],
+                                     self.clip_open),
             m2=MapResult.from_device(unpack_out(arr[:, C : 2 * C]),
-                                     np.asarray(lengths2)[rows]),
+                                     np.asarray(lengths2)[rows],
+                                     self.clip_open),
             proper=arr[:, 2 * C].astype(bool))
 
     def _merge_tb_pairs(self, arr: np.ndarray, bpl: int) -> tuple:

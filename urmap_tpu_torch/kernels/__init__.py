@@ -131,10 +131,11 @@ def counters() -> list[Counter]:
 OFF_PATH = ("seed_front_slots", "row128_window_fetch", "banded_semiglobal",
             "banded_semiglobal_clip", "rotate_narrow", "tb_bits",
             "micro_passes")
-# launched on the mapping path only in batches with clip-rescued gapped
-# winners (map.pipeline.clip_tb_pass_device): a path without such reads
-# runs it 0 times
+# launched on the mapping path only in batches with clip-mode gapped
+# winners (map.pipeline.clip_tb_pass_device: clip-rescued ones, or under
+# end_clip every single-end batch's): a path without such reads, and
+# the paired path under end_clip, runs it 0 times
 ON_CLIP_ROWS = ("clip_tb",)
 # under end_clip every DP runs in clip mode (the clip-rescue lane is off)
-# and the device traceback is off (map.pipeline.tb_enabled)
-OFF_PATH_END_CLIP = OFF_PATH + ("banded_dp", "tb_dops", "clip_tb")
+# and B6 is off (map.pipeline.tb_enabled)
+OFF_PATH_END_CLIP = OFF_PATH + ("banded_dp", "tb_dops")

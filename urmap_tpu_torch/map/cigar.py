@@ -3,11 +3,14 @@
 Copies of what urmap_tpu/map/cigar.py's SAM paths run:
 M-only winners get "{len}M" and an NM from the ungapped score; gapped
 winners replay the device traceback records (MapResult.tb, kernel B6)
-in O(L), clip-rescued ones the clip traceback's (MapResult.clip_tb,
-kernels/clip_tb.py; io/native/replay.cpp); rows without valid records
-(lane overflow, a walk that left the band or a record, stale
-score/pos/strand, or the traceback off) re-run the DP with traceback in
-C++ (io.native), clip-rescued rows in clip mode. SAM records then come from
+in O(L), clip-rescued ones (under end_clip every gapped one) the clip
+traceback's (MapResult.clip_tb, kernels/clip_tb.py;
+io/native/replay.cpp); rows without valid records (lane overflow, a
+walk that left the band or a record, stale score/pos/strand, or the
+traceback off) re-run the DP with traceback in C++ (io.native),
+clip-rescued rows (every row under end_clip) in clip mode. Each result
+is formatted in the clip mode it was mapped in (MapResult.clip_open).
+SAM records then come from
 io.sam_native.format_single_end / format_paired. The pure-Python path
 (``traceback``, ``cigars_nm_fast``, ``cigars_for_result``) serves
 PairedMapper.format_py and pair._ref_spans.
@@ -149,16 +152,14 @@ def _tb_decode_rows(genome, raw_codes, result, use: np.ndarray,
     return blob, off, nm_u, span_u, okd
 
 
-def _clip_select(result, rows: np.ndarray, clip_rows):
-    """Clip-rescued rows among ``rows`` whose CIGAR can replay from the
+def _clip_select(result, rows: np.ndarray):
+    """Clip-mode rows among ``rows`` whose CIGAR can replay from the
     clip traceback's records (MapResult.clip_tb): present there with the
     SAME score, pos and strand as the final result, as _tb_select holds
     B6's. Returns (sub_rows, clip_tb entry indices)."""
     ctb = getattr(result, "clip_tb", None)
-    if ctb is None or clip_rows is None or rows.size == 0 \
-            or ctb["rows"].size == 0:
+    if ctb is None or rows.size == 0 or ctb["rows"].size == 0:
         return rows[:0], np.zeros(0, np.int64)
-    rows = rows[np.asarray(clip_rows, bool)[rows]]
     cr = ctb["rows"]
     pi = np.minimum(np.searchsorted(cr, rows), cr.size - 1)
     ok = cr[pi] == rows
@@ -410,6 +411,18 @@ def strand_codes_subset(raw_codes: np.ndarray, strand, lengths) -> np.ndarray:
     return revcomp_strand_codes(raw_codes, shim)
 
 
+def _clip_mode(result, clip_open: int | None) -> int | None:
+    """The clip mode to format ``result`` in: the one it was mapped in
+    (MapResult.clip_open), which a caller's ``clip_open`` must name, if
+    it names one; for a result that records none, the caller's."""
+    if not hasattr(result, "clip_open"):
+        return clip_open
+    if clip_open is not None and clip_open != result.clip_open:
+        raise ValueError(f"clip_open {clip_open}: the result was mapped "
+                         f"with clip_open {result.clip_open}")
+    return result.clip_open
+
+
 # urmap_tpu/map/cigar.py:cigars_nm_blob
 def cigars_nm_blob(genome: np.ndarray, raw_codes: np.ndarray, result,
                    sc: ScoreConfig, raw_lengths=None,
@@ -418,6 +431,13 @@ def cigars_nm_blob(genome: np.ndarray, raw_codes: np.ndarray, result,
     int64[n+1], nm int32[n], span int32[n]) for the native SAM
     formatter, or None when the native library is unavailable. Takes
     the as-sequenced codes and reverse-complements only the gapped rows.
+
+    The result is formatted in the clip mode it was mapped in
+    (MapResult.clip_open; ValueError where ``clip_open`` names another):
+    end to end, B6's records serve the gapped rows and the clip
+    traceback's the clip-rescued ones (``clip_rows``); in clip mode
+    (end_clip) the clip traceback's records serve every gapped row.
+    Rows no record serves take the host DP in their mode.
 
     Traced (utils/trace.py) as ``urmap.cigars`` of the result's batch,
     with the children ``.replay`` (B6's records decoded),
@@ -431,6 +451,7 @@ def cigars_nm_blob(genome: np.ndarray, raw_codes: np.ndarray, result,
     """
     from urmap_tpu_torch.io import native
 
+    clip_open = _clip_mode(result, clip_open)
     lib = native.lib()
     if lib is None:
         return None
@@ -462,25 +483,28 @@ def _cigars_nm_blob(lib, genome, raw_codes, result, sc, raw_lengths,
     if rows.size:
         parts = []           # (sel-within-rows, blob, offs) per group
         handled = np.zeros(rows.size, bool)
+        # device traceback records: O(L) replay for the rows the tb
+        # pass (pipeline.tb_pass_device) and, for the clip-mode rows, the
+        # clip traceback pass covered; stale/band-escaped/overflow rows
+        # fall through to the DP below
         if clip_open is None:
-            # device traceback records: O(L) replay for the rows the tb
-            # pass (pipeline.tb_pass_device) and, for the clip-rescued
-            # rows, the clip traceback pass covered; stale/band-escaped/
-            # overflow rows fall through to the DP below
             use, ti = _tb_select(result, rows, clip_rows)
             if use.size:
                 with trace.span("urmap.cigars.replay"):
                     _keep_replayed(rows, use, *_tb_decode_rows(
                         genome, raw_codes, result, use, ti), nm, span,
                         parts, handled, "replay")
-            use, ci = _clip_select(result, rows, clip_rows)
-            if use.size:
-                with trace.span("urmap.cigars.clip_replay"):
-                    dec = _clip_decode_rows(genome, raw_codes, result, use,
-                                            ci)
-                    if dec is not None:
-                        _keep_replayed(rows, use, *dec, nm, span, parts,
-                                       handled, "clip_replay")
+            crows = (rows[:0] if clip_rows is None
+                     else rows[np.asarray(clip_rows, bool)[rows]])
+        else:
+            crows = rows            # end-clip: every gapped row
+        use, ci = _clip_select(result, crows)
+        if use.size:
+            with trace.span("urmap.cigars.clip_replay"):
+                dec = _clip_decode_rows(genome, raw_codes, result, use, ci)
+                if dec is not None:
+                    _keep_replayed(rows, use, *dec, nm, span, parts,
+                                   handled, "clip_replay")
         groups = _clip_groups(result, sc, clip_open, clip_rows,
                               rows=rows[~handled])
         for grows, co in groups:

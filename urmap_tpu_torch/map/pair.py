@@ -35,7 +35,8 @@ from urmap_tpu_torch.map.dp import NEG, banded_packed
 from urmap_tpu_torch.kernels import rescue_rounds
 from urmap_tpu_torch.map.pipeline import (PACKED_COLS, MapResult, _any,
                                           _nonzero_padded,
-                                          candidates_batch_device, download,
+                                          candidates_batch_device, clip_mode,
+                                          download,
                                           merge_tb_batches, pack_out,
                                           revcomp_batch,
                                           revcomp_strand_codes, tb_cols,
@@ -149,7 +150,7 @@ def _rescue_scan(tables: dict, anchor_pos: torch.Tensor,
     score, d0, ungapped, _span = banded_packed(
         tables["ginter"], tables["base_off"], cand, other_codes, other_len,
         rp, rn, hw=mc.band_halfwidth, sc=sc,
-        clip_open=sc.clip_open if mc.end_clip else None)
+        clip_open=clip_mode(mc, sc))
     return {"pos": cand + d0, "score": score, "ungapped": ungapped}
 
 
@@ -406,6 +407,10 @@ class PairedMapper:
         # one source of truth (pipeline.tb_enabled through the mapper):
         # finish_batch splits the flattened output by it
         self.tb = mapper.tb
+        # both mates' results record the mapper's clip mode; under
+        # end_clip their clip rows keep the host clip DP (the pair path
+        # runs no clip traceback)
+        self.clip_open = mapper.clip_open
         self.stats = {"rescue_rounds": 0, "batches": 0}
 
     def prepack(self, codes1, lengths1, codes2, lengths2):
@@ -461,9 +466,11 @@ class PairedMapper:
         arr = arr[:B]
         res = PairResult(
             m1=MapResult.from_device(unpack_out(arr[:, 0:C]),
-                                     np.asarray(lengths1)[:B]),
+                                     np.asarray(lengths1)[:B],
+                                     self.clip_open),
             m2=MapResult.from_device(unpack_out(arr[:, C : 2 * C]),
-                                     np.asarray(lengths2)[:B]),
+                                     np.asarray(lengths2)[:B],
+                                     self.clip_open),
             proper=arr[:, 2 * C].astype(bool),
         )
         if tbmat is not None:
@@ -574,7 +581,8 @@ class PairedMapper:
                       for f in ("mapped", "pos", "strand", "score", "second",
                                 "mapq", "gapped", "ungapped", "clipped",
                                 "suspect")}
-            res = MapResult(lengths=np.asarray(lengths)[:B], **fields)
+            res = MapResult(lengths=np.asarray(lengths)[:B],
+                            clip_open=self.clip_open, **fields)
             res.tb = merge_tb_batches([r.tb for r in results],
                                       range(0, B, bs))
             return res
@@ -596,11 +604,11 @@ class PairedMapper:
         cig1, nm1 = cigars_for_result(
             genome, sc1, res.m1, self.sc,
             raw_lengths=[len(sq) for sq in fwd_batch.seqs],
-            clip_rows=res.m1.clipped)
+            clip_open=res.m1.clip_open, clip_rows=res.m1.clipped)
         cig2, nm2 = cigars_for_result(
             genome, sc2, res.m2, self.sc,
             raw_lengths=[len(sq) for sq in rev_batch.seqs],
-            clip_rows=res.m2.clipped)
+            clip_open=res.m2.clip_open, clip_rows=res.m2.clipped)
         return samio.records_paired(fwd_batch, rev_batch, res,
                                     cig1, nm1, cig2, nm2, self.index.seqdb)
 

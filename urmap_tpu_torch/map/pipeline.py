@@ -76,9 +76,14 @@ class MapResult:
     tb: dict | None = None              # device traceback (unpack_tb)
     clip_tb: dict | None = None         # clip traceback (unpack_clip_tb)
     batch: int | None = None            # the batch id (utils/trace.py)
+    # the clip mode the batch was mapped in (clip_mode): ScoreConfig.
+    # clip_open under end_clip, else None; cigar.cigars_nm_blob formats
+    # in it
+    clip_open: int | None = None
 
     @classmethod
-    def from_device(cls, out: dict, lengths) -> "MapResult":
+    def from_device(cls, out: dict, lengths,
+                    clip_open: int | None = None) -> "MapResult":
         return cls(
             mapped=np.asarray(out["mapped"]),
             pos=np.asarray(out["pos"], dtype=np.int64),
@@ -94,6 +99,7 @@ class MapResult:
                      if "clipped" in out else None),
             suspect=(np.asarray(out["suspect"])
                      if "suspect" in out else None),
+            clip_open=clip_open,
         )
 
 
@@ -120,6 +126,33 @@ def tb_enabled(mcfg: MapConfig) -> bool:
     return bool(mcfg.tb_bits and not mcfg.end_clip
                 and mcfg.band_halfwidth <= 31
                 and os.environ.get("URMAP_NO_TB_BITS") != "1")
+
+
+def clip_mode(mcfg: MapConfig, sc: ScoreConfig) -> int | None:
+    """The clip mode of a Mapper's results (MapResult.clip_open): every
+    DP of the path soft-clips for ``sc.clip_open`` under end_clip; None
+    (end to end) otherwise."""
+    return sc.clip_open if mcfg.end_clip else None
+
+
+def clip_tb_enabled(mcfg: MapConfig, sc: ScoreConfig) -> bool:
+    """The one predicate that turns the clip traceback pass
+    (clip_tb_pass_device) on, apart from tb_enabled: under end_clip over
+    every mapped gapped winner of every batch (B6 has no clip mode and
+    stays off); otherwise the rescue rule, over the clip-rescued gapped
+    winners of the batches whose clip-rescue lane ran, beside B6. Both
+    only where the kernel takes the read block (kernels.clip_tb.enabled)
+    and the device traceback records are on (``tb_bits``, not
+    URMAP_NO_TB_BITS=1): without them every clip row takes the host clip
+    DP, with the same SAM bytes."""
+    from urmap_tpu_torch.kernels import clip_tb
+
+    if not clip_tb.enabled(mcfg.max_read_len, sc):
+        return False
+    if mcfg.end_clip:
+        return bool(mcfg.tb_bits
+                    and os.environ.get("URMAP_NO_TB_BITS") != "1")
+    return tb_enabled(mcfg)
 
 
 def card_limits(mcfg: MapConfig) -> list[str]:
@@ -377,7 +410,7 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
                - mcfg.dp_trigger_mismatches * (sc.match - sc.mismatch))
     need_dp = (best_ung > NEG) & (best_ung < trigger) & (lengths >= icfg.k)
     D = max(B // mcfg.dp_capacity_frac, 1)
-    clip = sc.clip_open if mcfg.end_clip else None
+    clip = clip_mode(mcfg, sc)
     scores_f = ung_masked.clone()
     pos_f = cand_f.clone()
     ungapped_f = ung_masked.clone()
@@ -443,12 +476,15 @@ def candidates_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
 def map_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
                      icfg: IndexConfig, mcfg: MapConfig, sc: ScoreConfig,
                      packed_reads=None, tb: bool = False,
+                     clip_tb: bool = False,
                      gather_runner=None, dp_runner=None) -> dict:
     """One batch → per-read calls with the weak and suspect MAPQ gates;
-    with ``tb`` also ``_tb``, the traceback matrix of tb_pass_device,
-    and, where the clip-rescue lane ran a round, ``_clip_tb``, the
-    matrix of clip_tb_pass_device. ``gather_runner``, ``dp_runner``: see
-    candidates_batch_device."""
+    with ``tb`` also ``_tb``, the traceback matrix of tb_pass_device;
+    with ``clip_tb`` (clip_tb_enabled) also ``_clip_tb``, the matrix of
+    clip_tb_pass_device: under end_clip in every batch, over every
+    mapped gapped winner; otherwise where the clip-rescue lane ran a
+    round, over the clip-rescued gapped winners. ``gather_runner``,
+    ``dp_runner``: see candidates_batch_device."""
     c = candidates_batch_device(tables, reads, lengths, icfg=icfg,
                                 mcfg=mcfg, sc=sc, packed_reads=packed_reads,
                                 gather_runner=gather_runner,
@@ -474,21 +510,20 @@ def map_batch_device(tables: dict, reads, lengths: torch.Tensor, *,
         sat & (deficit > sus_d),
         out["mapq"].clamp(max=mcfg.suspect_mapq_cap), out["mapq"])
     out["suspect"] = sat & (deficit > remap_d)
+    L = mcfg.max_read_len if reads is None else reads.shape[1]
     if tb:
-        from urmap_tpu_torch.kernels import clip_tb
-
-        L = mcfg.max_read_len if reads is None else reads.shape[1]
         # clip-rescued rows take the clip traceback below (B6's band
         # cannot hold the host's clip-mode paths)
         gsel = out["mapped"] & out["gapped"] & ~out["clipped"]
         out["_tb"] = tb_pass_device(tables, out["pos"], out["strand"],
                                     lengths, gsel, *words, L=L, mcfg=mcfg,
                                     sc=sc)
-        if clip_ran and clip_tb.enabled(L, sc):
-            csel = out["gapped"] & out["clipped"]
-            out["_clip_tb"] = clip_tb_pass_device(
-                tables, out["pos"], out["strand"], out["score"], lengths,
-                csel, *words, L=L, mcfg=mcfg, sc=sc)
+    if clip_tb and (mcfg.end_clip or clip_ran):
+        csel = out["gapped"] & (out["mapped"] if mcfg.end_clip
+                                else out["clipped"])
+        out["_clip_tb"] = clip_tb_pass_device(
+            tables, out["pos"], out["strand"], out["score"], lengths,
+            csel, *words, L=L, mcfg=mcfg, sc=sc)
     return out
 
 
@@ -565,14 +600,16 @@ def tb_pass_device(tables: dict, pos: torch.Tensor, strand: torch.Tensor,
 
 
 # ---- the clip traceback pass (kernels/clip_tb.py) ----
-# The clip-rescued gapped winners are re-aligned by the clip traceback
-# over the host's clip-mode window (POS, read length + 48 bases, clamped
-# at the genome's end), and cigar.cigars_nm_blob replays its records in
-# O(L). Its matrix rides the same device-to-host copy, after the tb
-# matrix, in batches whose clip-rescue lane ran: rows 0-4 = meta (winner
-# row index; strand<<18 | ok<<17 | do<<16; the winner's score; its POS,
-# biased; the clip traceback's score), rows 5.. = the records, columns =
-# the C compacted winner lanes (tb_cols, as B6's).
+# The clip-mode gapped winners (under end_clip every mapped gapped
+# winner, else the clip-rescued ones) are re-aligned by the clip
+# traceback over the host's clip-mode window (POS, read length + 48
+# bases, clamped at the genome's end), and cigar.cigars_nm_blob replays
+# its records in O(L). Its matrix rides the same device-to-host copy,
+# after the tb matrix where B6 ran (clip_tb_enabled says in which
+# batches): rows 0-4 = meta (winner row index; strand<<18 | ok<<17 |
+# do<<16; the winner's score; its POS, biased; the clip traceback's
+# score), rows 5.. = the records, columns = the C compacted winner lanes
+# (clip_tb_cols).
 CLIP_META_ROWS = 5
 
 
@@ -580,6 +617,27 @@ def clip_tb_rows(mcfg: MapConfig) -> int:
     from urmap_tpu_torch.map.tb import dops_words
 
     return CLIP_META_ROWS + dops_words(mcfg.max_read_len)
+
+
+def clip_tb_cols(nrows: int, mcfg: MapConfig) -> int:
+    """The clip traceback's lanes over ``nrows`` rows: B6's (tb_cols)
+    for the clip-rescued winners; under end_clip, where every gapped
+    winner takes a lane (indels and adapter tails alike: ~17% of a
+    short-insert library's reads), twice that."""
+    C = tb_cols(nrows, mcfg)
+    return min(2 * C, nrows) if mcfg.end_clip else C
+
+
+def clip_tb_past(res: "MapResult", mcfg: MapConfig, C: int,
+                 rows: int) -> None:
+    """Count ``rows.clip_tb_past``: the clip pass's winners of ``res``
+    (under end_clip the mapped gapped rows, else the clip-rescued gapped
+    rows) past the C lanes of each block of ``rows`` rows the pass
+    compacted; the host clip DP serves them."""
+    sel = res.gapped & (res.mapped if mcfg.end_clip else res.clipped)
+    trace.count("rows.clip_tb_past",
+                sum(max(int(sel[s : s + rows].sum()) - C, 0)
+                    for s in range(0, sel.size, rows)))
 
 
 def _compact(sel: torch.Tensor, C: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -599,17 +657,18 @@ def clip_tb_pass_device(tables: dict, pos: torch.Tensor,
                         lengths_rows: torch.Tensor, gsel: torch.Tensor,
                         rp2: torch.Tensor, rn2: torch.Tensor, *, L: int,
                         mcfg: MapConfig, sc: ScoreConfig) -> torch.Tensor:
-    """Compact the clip-rescued gapped winners → windows at POS → the
-    clip traceback → one int32 matrix [CLIP_META_ROWS + DWp, C]; no host
-    sync. Arguments as tb_pass_device's, with ``score`` the winners'.
-    Winners beyond the C lanes, at a POS below 0, or whose path the
-    records cannot hold get ok 0 and go to the host DP."""
+    """Compact the winners ``gsel`` → windows at POS → the clip
+    traceback → one int32 matrix [CLIP_META_ROWS + DWp, C]
+    (C = clip_tb_cols); no host sync. Arguments as tb_pass_device's,
+    with ``score`` the winners'. Winners beyond the C lanes get no
+    record; those at a POS below 0, or whose path the records cannot
+    hold, get ok 0; both go to the host DP."""
     from urmap_tpu_torch import genome_pack as gpk
     from urmap_tpu_torch.kernels import clip_tb
     from urmap_tpu_torch.map.clip_tb import PAD
 
     nrows = gsel.shape[0]
-    C = tb_cols(nrows, mcfg)
+    C = clip_tb_cols(nrows, mcfg)
     idx, do = _compact(gsel, C)
     # fill lanes (do 0) take length 0: the kernel skips them
     lens = torch.where(do, lengths_rows[idx], 0)
@@ -638,10 +697,12 @@ def unpack_clip_tb(arr: np.ndarray) -> dict:
     """Host reader of clip_tb_pass_device's matrix → the dict
     cigar.cigars_nm_blob reads: the live lanes whose path the records
     hold (rows, score, pos, strand as the winner had them, dp_score, and
-    their columns of ``recs``)."""
+    their columns of ``recs``). Counts ``rows.clip_tb``, the lanes that
+    held a winner (``do``)."""
     meta = arr[:CLIP_META_ROWS]
-    live = ((meta[1] >> 16) & 1).astype(bool) \
-        & ((meta[1] >> 17) & 1).astype(bool)
+    do = ((meta[1] >> 16) & 1).astype(bool)
+    trace.count("rows.clip_tb", int(do.sum()))
+    live = do & ((meta[1] >> 17) & 1).astype(bool)
     return {
         "rows": meta[0][live].astype(np.int64),
         "score": meta[2][live].astype(np.int32),
@@ -900,8 +961,10 @@ class Mapper:
     gather's width where URMAP_TIER_GATHER=1 (``gather_tier``). ``prepared``: (host
     tables, meta) from either package's prepare_tables /
     load_prepared, in place of preparing them from ``index`` here.
-    ``mcfg.end_clip`` runs every DP in clip mode and turns the device
-    traceback off; ``mcfg.second_pass_p`` adds the WideSecondPass,
+    ``mcfg.end_clip`` runs every DP in clip mode and traces every gapped
+    winner back with the clip traceback in place of B6 (results record
+    the mode, MapResult.clip_open); ``mcfg.second_pass_p`` adds the
+    WideSecondPass,
     which ``second_pass`` (and ``map_codes``) apply on the host CPU."""
 
     def __init__(self, index, mcfg: MapConfig | None = None,
@@ -917,8 +980,12 @@ class Mapper:
         self.index = index
         self.icfg = index.config
         self.sc = sc or ScoreConfig()
-        # device traceback records: the one shared predicate
+        # device traceback records: B6's and the clip traceback's, each
+        # by its one predicate
         self.tb = tb_enabled(self.mcfg)
+        self.clip_tb = clip_tb_enabled(self.mcfg, self.sc)
+        # the clip mode its results record (MapResult.clip_open)
+        self.clip_open = clip_mode(self.mcfg, self.sc)
         p = self.mcfg.positions_per_seed
         if prepared is None:
             prepared = load_prepared(index, p) or prepare_tables(index, p)
@@ -986,16 +1053,16 @@ class Mapper:
                                    sc=self.sc,
                                    packed_reads=(upload(pk, self.device),
                                                  upload(nm, self.device)),
-                                   tb=self.tb)
+                                   tb=self.tb, clip_tb=self.clip_tb)
             packed = pack_out(out)
-            if self.tb:
+            mats = ([out["_tb"]] if self.tb else []) \
+                + ([out["_clip_tb"]] if "_clip_tb" in out else [])
+            if mats:
                 # one array, one device-to-host copy; finish_batch splits
-                # it by the known sizes (the clip matrix only where the
-                # clip-rescue lane ran)
-                packed = torch.cat([packed.reshape(-1),
-                                    out["_tb"].reshape(-1)]
-                                   + ([out["_clip_tb"].reshape(-1)]
-                                      if "_clip_tb" in out else []))
+                # it by the known sizes (under the rescue rule the clip
+                # matrix only where the clip-rescue lane ran)
+                packed = torch.cat([packed.reshape(-1)]
+                                   + [m.reshape(-1) for m in mats])
         return packed, B, batch
 
     def finish_batch(self, handle, lengths) -> MapResult:
@@ -1004,23 +1071,28 @@ class Mapper:
             arr = download(out)
             with trace.span("urmap.unpack"):
                 tbmat = clipmat = None
-                if self.tb:
+                if self.tb or self.clip_tb:
                     bs = self.mcfg.batch_size
-                    C = tb_cols(bs, self.mcfg)
-                    split = bs * PACKED_COLS
-                    end = split + tb_rows(self.mcfg) * C
-                    tbmat = arr[split:end].reshape(tb_rows(self.mcfg), C)
+                    end = split = bs * PACKED_COLS
+                    if self.tb:
+                        C = tb_cols(bs, self.mcfg)
+                        end = split + tb_rows(self.mcfg) * C
+                        tbmat = arr[split:end].reshape(tb_rows(self.mcfg), C)
                     if arr.size > end:
-                        clipmat = arr[end:].reshape(clip_tb_rows(self.mcfg),
-                                                    C)
+                        clipmat = arr[end:].reshape(
+                            clip_tb_rows(self.mcfg),
+                            clip_tb_cols(bs, self.mcfg))
                     arr = arr[:split].reshape(bs, PACKED_COLS)
                 merged = {k: v[:B] for k, v in unpack_out(arr).items()}
-                res = MapResult.from_device(merged, np.asarray(lengths)[:B])
+                res = MapResult.from_device(merged, np.asarray(lengths)[:B],
+                                            self.clip_open)
                 if tbmat is not None:
                     res.tb = unpack_tb(tbmat, self.mcfg.band_halfwidth,
                                        self.mcfg.max_read_len)
                 if clipmat is not None:
                     res.clip_tb = unpack_clip_tb(clipmat)
+                    clip_tb_past(res, self.mcfg, clipmat.shape[1],
+                                 self.mcfg.batch_size)
         res.batch = batch
         return res
 
@@ -1039,7 +1111,8 @@ class Mapper:
                   for f in ("mapped", "pos", "strand", "score", "second",
                             "mapq", "gapped", "ungapped", "clipped",
                             "suspect")}
-        res = MapResult(lengths=np.asarray(lengths)[:B], **merged)
+        res = MapResult(lengths=np.asarray(lengths)[:B],
+                        clip_open=outs[0].clip_open, **merged)
         # keep the device traceback across the multi-batch merge, or
         # every gapped winner pays the host DP again
         res.tb = merge_tb_batches([o.tb for o in outs], range(0, B, bs))
