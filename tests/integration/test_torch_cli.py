@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from tests.utils import make_seqdb, plant_pair, plant_read, write_fastq
 from urmap_tpu import alphabet
 from urmap_tpu import cli as jcli

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from tests.utils import make_seqdb, plant_pair, write_fastq
 from urmap_tpu.config import IndexConfig, MapConfig
 from urmap_tpu.index.build import build_index as jbuild

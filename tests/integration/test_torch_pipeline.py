@@ -11,6 +11,7 @@ format_single_end) identical.
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from tests.utils import make_seqdb, plant_read, write_fastq
 from urmap_tpu.config import IndexConfig, MapConfig
 from urmap_tpu.index.build import build_index as jbuild

@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from tests.integration import test_repeat_mapq as ref_tandem
 from tests.integration import test_suspect_gate as ref_family
 from tests.utils import plant_read, random_seq
@@ -64,19 +65,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 FIELDS = ("mapped", "pos", "strand", "score", "second", "mapq", "gapped",
           "ungapped", "clipped", "suspect", "lengths")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for torch while a test of this file runs. The
-    port's CPU path is many small ops, and when parallel test workers
-    oversubscribe the cores each op waits at OpenMP barriers, so a test
-    can take tens of times as long as alone. With one thread the port
-    maps as fast alone and does not stall."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _indexes(db, icfg):

@@ -11,6 +11,7 @@ tables prepared by either package. Integers and bytes: tolerance 0.
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from tests.utils import make_seqdb, plant_read, write_fastq
 from urmap_tpu.config import MapConfig
 from urmap_tpu.index.build import build_index as jbuild

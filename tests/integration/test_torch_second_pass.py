@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from tests.utils import make_seqdb, plant_pair, plant_read
 from urmap_tpu.config import IndexConfig, MapConfig
 from urmap_tpu.index.build import build_index as jbuild

@@ -22,6 +22,8 @@ import sys
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 FIELDS = ("mapped", "pos", "strand", "score", "second", "mapq", "gapped",

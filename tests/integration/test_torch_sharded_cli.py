@@ -18,6 +18,7 @@ import sys
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from tests.integration.test_torch_sharded import free_port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(

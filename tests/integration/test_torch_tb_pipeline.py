@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from tests.utils import make_seqdb, plant_read, write_fastq
 from urmap_tpu import genome_pack as jgpk
 from urmap_tpu.config import IndexConfig, MapConfig

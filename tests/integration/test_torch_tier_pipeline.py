@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from tests.utils import plant_pair, plant_read, write_fastq
 from urmap_tpu import genome_pack as jgpk
 from urmap_tpu.config import MapConfig

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from urmap_tpu_torch.tools import a2a_rounds as ta2a
 from urmap_tpu_torch.tools import make_g38_corpus as tg38
 from urmap_tpu_torch.tools import make_verify_corpus as tverify
@@ -35,17 +36,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SWEEP_ARGV = ["--cpu", "--genome-mbp", "0.3", "--reads", "1000",
               "--batch", "256"]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for torch while a test of this file runs
-    (test_torch_repeats.py says why: parallel test workers oversubscribe
-    the cores, and the port's many small CPU ops then stall)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _source(name):

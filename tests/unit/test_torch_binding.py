@@ -17,6 +17,8 @@ import re
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 PKG = os.path.join(ROOT, "urmap_tpu_torch")

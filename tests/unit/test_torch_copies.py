@@ -11,6 +11,8 @@ import os
 
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from urmap_tpu import hashing as jhash
 from urmap_tpu.config import IndexConfig as JCfg
 from urmap_tpu.index import build as jbuild

@@ -15,6 +15,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from tests.unit.test_torch_cuda import fused_fetch_inputs
 from urmap_tpu import genome_pack as jgpk
 from urmap_tpu_torch import genome_pack as tgpk

@@ -11,6 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from urmap_tpu import genome_pack as jgpk
 from urmap_tpu_torch import _bits
 from urmap_tpu_torch import genome_pack as tgpk

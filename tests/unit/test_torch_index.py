@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from urmap_tpu.config import IndexConfig
 from urmap_tpu.index import store as jstore
 from urmap_tpu.index.build import build_index as jbuild

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from urmap_tpu_torch import kernels
 from urmap_tpu_torch.kernels import micro
 from urmap_tpu_torch.tools import bench_microvpu as tool
@@ -30,16 +31,6 @@ from urmap_tpu_torch.tools import bench_microvpu as tool
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCE = os.path.join(ROOT, "tools", "bench_microvpu.py")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for torch while a test of this file runs
-    (test_torch_repeats.py says why)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _source():

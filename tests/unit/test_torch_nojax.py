@@ -26,6 +26,7 @@ import sys
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from urmap_tpu_torch import require_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -158,7 +159,7 @@ print("NOJAX-OK")
 
 
 def test_port_imports_and_maps_without_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]

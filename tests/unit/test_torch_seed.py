@@ -13,6 +13,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from urmap_tpu import genome_pack as jgpk
 from urmap_tpu import hashing as jhash
 from urmap_tpu.config import IndexConfig

@@ -20,6 +20,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from urmap_tpu import genome_pack as jgpk
 from urmap_tpu.config import IndexConfig
 from urmap_tpu.index.build import build_index as jbuild

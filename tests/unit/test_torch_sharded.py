@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from urmap_tpu_torch.dist import sharded as tsh
 
 

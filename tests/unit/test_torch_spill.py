@@ -20,6 +20,7 @@ import tempfile
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from urmap_tpu import alphabet
 from urmap_tpu import cli as jcli
 from urmap_tpu.config import IndexConfig

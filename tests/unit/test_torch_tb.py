@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from urmap_tpu.config import ScoreConfig
 from urmap_tpu.kernels import tb_dp as jtb
 from urmap_tpu.map.cigar import traceback

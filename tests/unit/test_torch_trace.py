@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 from tests.utils import make_seqdb, plant_pair, plant_read, write_fastq
 from urmap_tpu_torch import kernels
 from urmap_tpu_torch.config import IndexConfig, MapConfig

@@ -42,9 +42,10 @@ and only index 0 returns them.
 
 The device traceback runs on every rank over its rows, wherever
 tb_enabled holds, and so does the clip traceback, wherever
-clip_tb_enabled holds; the records rebase to global rows as in the
-reference's _merge_tb / _merge_tb_pairs. (The reference turns it off
-under multi-host; the SAM bytes are the same either way.)
+clip_tb_enabled holds; the records rebase to global rows
+(map/output.py) as in the reference's _merge_tb / _merge_tb_pairs. (The
+reference turns it off under multi-host; the SAM bytes are the same
+either way.)
 
 The table and sizing functions from ``_largest_pow2_divisor`` to
 ``a2a_slack_from_index`` are the reference's, copied verbatim
@@ -64,15 +65,10 @@ import torch.distributed as dist
 from urmap_tpu_torch.config import MapConfig, ScoreConfig
 from urmap_tpu_torch.index.store import UfiIndex
 from urmap_tpu_torch.map.dp import banded_packed
-from urmap_tpu_torch.map.pipeline import (PACKED_COLS, MapResult,
-                                          clip_mode, clip_tb_cols,
-                                          clip_tb_enabled, clip_tb_past,
-                                          clip_tb_rows,
-                                          map_batch_device, merge_clip_tb,
-                                          pack_out, refuse_beyond_card,
-                                          tb_cols, tb_enabled, tb_rows,
-                                          unpack_clip_tb, unpack_out,
-                                          unpack_tb)
+from urmap_tpu_torch.map.output import Layout, join
+from urmap_tpu_torch.map.pipeline import (MapResult, clip_mode,
+                                          clip_tb_enabled, map_batch_device,
+                                          refuse_beyond_card, tb_enabled)
 from urmap_tpu_torch.map.seed import (POS_BIAS, SENTINEL, decode_offsets,
                                       gather_runs)
 
@@ -582,6 +578,8 @@ class ShardedMapper:
         # round): the all-gather takes one size from every rank
         self._clip = clip_tb_enabled(self.mcfg, self.sc)
         self.clip_open = clip_mode(self.mcfg, self.sc)
+        self.layout = Layout(self.mcfg, self._rps(self._bs), tb=self.tb,
+                              pad_clip=self._clip)
         self._runners = _make_runners(self.tables, route=route,
                                       sps=self._sps, mcfg=self.mcfg,
                                       sc=self.sc, a2a_slack=self.a2a_slack,
@@ -630,18 +628,7 @@ class ShardedMapper:
                                packed_reads=(pk, nm), tb=self.tb,
                                clip_tb=self._clip,
                                gather_runner=gr, dp_runner=dr)
-        packed = pack_out(out).reshape(-1)
-        if self.tb:
-            packed = torch.cat([packed, out["_tb"].reshape(-1)])
-        if self._clip:
-            cm = out.get("_clip_tb")
-            if cm is None:
-                cm = torch.zeros((clip_tb_rows(self.mcfg),
-                                  clip_tb_cols(self._rps(self._bs),
-                                               self.mcfg)),
-                                 dtype=torch.int32, device=self.device)
-            packed = torch.cat([packed, cm.reshape(-1)])
-        return packed, B
+        return self.layout.pack(out), B
 
     def _gather_owners(self, flat: torch.Tensor) -> np.ndarray:
         """Every rank's flat output → [owners, n] on the host, the
@@ -652,82 +639,12 @@ class ShardedMapper:
                   if self.route == "a2a" or r % self.mesh.index == 0]
         return got[owners]
 
-    def _split(self, arr: np.ndarray, rps: int, cols: int, tb_nrows: int):
-        """Flat per-rank outputs [n_sh, ...] → (rows [n_sh * rps, cols],
-        traceback matrices over ``tb_nrows`` rows each, side by side
-        [tb_rows, n_sh * C], or None)."""
-        split = rps * cols
-        rows = arr[:, :split].reshape(-1, cols)
-        if not self.tb:
-            return rows, None
-        C = tb_cols(tb_nrows, self.mcfg)
-        mats = arr[:, split : split + tb_rows(self.mcfg) * C] \
-            .reshape(arr.shape[0], tb_rows(self.mcfg), C)
-        return rows, np.concatenate(list(mats), axis=1)
-
-    def _clip_mats(self, arr: np.ndarray, tb_nrows: int):
-        """The clip traceback matrices at the end of each rank's flat
-        single-end output, side by side [clip_tb_rows, n_sh * C], or
-        None."""
-        if not self._clip:
-            return None
-        C = clip_tb_cols(tb_nrows, self.mcfg)
-        nr = clip_tb_rows(self.mcfg)
-        mats = arr[:, arr.shape[1] - nr * C :].reshape(arr.shape[0], nr, C)
-        return np.concatenate(list(mats), axis=1)
-
-    def _merge_clip(self, arr: np.ndarray, rows_per_shard: int) -> dict:
-        """Per-shard clip blocks → one dict with global rows and columns
-        (shard s owns batch rows [s*rps, (s+1)*rps), as _merge_tb)."""
-        Cl = clip_tb_cols(rows_per_shard, self.mcfg)
-        nsh = arr.shape[1] // Cl
-        return merge_clip_tb(
-            [unpack_clip_tb(arr[:, s * Cl : (s + 1) * Cl])
-             for s in range(nsh)],
-            [s * rows_per_shard for s in range(nsh)])
-
-    def _merge_tb(self, arr: np.ndarray, rows_per_shard: int) -> dict:
-        """Per-shard dops blocks → one host tb dict with global row and
-        column indices (urmap_tpu/dist/sharded.py ShardedMapper._merge_tb:
-        shard s owns batch rows [s*rps, (s+1)*rps), and shard order keeps
-        the rows ascending)."""
-        from urmap_tpu_torch.map.pipeline import TB_META_ROWS
-
-        hw, L = self.mcfg.band_halfwidth, self.mcfg.max_read_len
-        Cl = tb_cols(rows_per_shard, self.mcfg)
-        nsh = arr.shape[1] // Cl
-        parts = []
-        for s in range(nsh):
-            p = unpack_tb(arr[:, s * Cl : (s + 1) * Cl], hw, L)
-            p["rows"] += s * rows_per_shard
-            p["cols"] += s * Cl
-            parts.append(p)
-        return {
-            "rows": np.concatenate([p["rows"] for p in parts]),
-            "score": np.concatenate([p["score"] for p in parts]),
-            "pos": np.concatenate([p["pos"] for p in parts]),
-            "strand": np.concatenate([p["strand"] for p in parts]),
-            "cols": np.concatenate([p["cols"] for p in parts]),
-            "dops": arr[TB_META_ROWS:], "hw": hw, "L": L,
-        }
-
     def finish_batch(self, handle, lengths) -> MapResult:
         """The whole batch on every rank (an all-gather of the rows and
         traceback matrices)."""
         out, B = handle
-        rps = self._rps(self._bs)
-        got = self._gather_owners(out)
-        rows, tbmat = self._split(got, rps, PACKED_COLS, rps)
-        merged = {k: v[:B] for k, v in unpack_out(rows).items()}
-        res = MapResult.from_device(merged, np.asarray(lengths)[:B],
-                                    self.clip_open)
-        if tbmat is not None:
-            res.tb = self._merge_tb(tbmat, rps)
-        clipmat = self._clip_mats(got, rps)
-        if clipmat is not None:
-            res.clip_tb = self._merge_clip(clipmat, rps)
-            clip_tb_past(res, self.mcfg, clip_tb_cols(rps, self.mcfg), rps)
-        return res
+        return self.layout.result(self._gather_owners(out),
+                                   np.asarray(lengths)[:B], self.clip_open)
 
     def _local_rows(self, B: int, rows: int):
         """Global indices of this rank's returned rows below B (empty
@@ -745,24 +662,12 @@ class ShardedMapper:
         (dist/multihost.py). The traceback records keep their local row
         indices, which are the result's."""
         out, B = handle
-        rps = self._rps(self._bs)
         rows = self._local_rows(B, self._bs)
-        arr = out.cpu().numpy()[None]
-        packed, tbmat = self._split(arr, rps, PACKED_COLS, rps)
-        res = MapResult.from_device(unpack_out(packed[: rows.size]),
-                                    np.asarray(lengths)[rows], self.clip_open)
-        if tbmat is not None and rows.size:
-            res.tb = unpack_tb(tbmat, self.mcfg.band_halfwidth,
-                               self.mcfg.max_read_len)
-        clipmat = self._clip_mats(arr, rps)
-        if clipmat is not None and rows.size:
-            res.clip_tb = unpack_clip_tb(clipmat)
-            clip_tb_past(res, self.mcfg, clipmat.shape[1], rps)
-        return res, rows
+        return self.layout.result(out.cpu().numpy()[None],
+                                   np.asarray(lengths)[rows],
+                                   self.clip_open), rows
 
     def map_codes(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:
-        from urmap_tpu_torch.map.pipeline import merge_tb_batches
-
         B = codes.shape[0]
         outs = []
         for s in range(0, B, self._bs):
@@ -771,19 +676,7 @@ class ShardedMapper:
             outs.append(self.second_pass(
                 codes[s : s + self._bs], lengths[s : s + self._bs],
                 self.finish_batch(h, lengths[s : s + self._bs])))
-        if len(outs) == 1:
-            return outs[0]
-        merged = {f: np.concatenate([getattr(o, f) for o in outs])
-                  for f in ("mapped", "pos", "strand", "score", "second",
-                            "mapq", "gapped", "ungapped", "clipped",
-                            "suspect")}
-        res = MapResult(lengths=np.asarray(lengths)[:B],
-                        clip_open=self.clip_open, **merged)
-        res.tb = merge_tb_batches([o.tb for o in outs],
-                                  range(0, B, self._bs))
-        res.clip_tb = merge_clip_tb([o.clip_tb for o in outs],
-                                    range(0, B, self._bs))
-        return res
+        return join(outs, lengths)
 
 
 class ShardedPairedMapper:
@@ -806,6 +699,8 @@ class ShardedPairedMapper:
         self.pair_batch = mapper._bs // 2
         self.tb = mapper.tb
         self.clip_open = mapper.clip_open
+        self.layout = Layout(self.mcfg, mapper._rps(self.pair_batch),
+                              paired=True, tb=self.tb)
         self.stats = {"rescue_rounds": 0, "batches": 0}
         # the single-card host side, bound to this object: the upload
         # prep at pair_batch, the batch loop, the formatter and the
@@ -833,75 +728,19 @@ class ShardedPairedMapper:
         self.stats["batches"] += 1
         return out, B
 
-    def _result(self, arr, lengths1, lengths2, rows):
-        from urmap_tpu_torch.map.pair import PairResult
-
-        C = PACKED_COLS
-        return PairResult(
-            m1=MapResult.from_device(unpack_out(arr[:, 0:C]),
-                                     np.asarray(lengths1)[rows],
-                                     self.clip_open),
-            m2=MapResult.from_device(unpack_out(arr[:, C : 2 * C]),
-                                     np.asarray(lengths2)[rows],
-                                     self.clip_open),
-            proper=arr[:, 2 * C].astype(bool))
-
-    def _merge_tb_pairs(self, arr: np.ndarray, bpl: int) -> tuple:
-        """PE twin of _merge_tb (urmap_tpu/dist/sharded.py
-        ShardedMapper._merge_tb_pairs): per-shard rows [0, bpl) are
-        mate 1 and [bpl, 2*bpl) mate 2 → (m1_tb, m2_tb) with global pair
-        rows."""
-        from urmap_tpu_torch.map.pipeline import TB_META_ROWS
-
-        hw, L = self.mcfg.band_halfwidth, self.mcfg.max_read_len
-        Cl = tb_cols(2 * bpl, self.mcfg)
-        nsh = arr.shape[1] // Cl
-        sides = ([], [])
-        for s in range(nsh):
-            p = unpack_tb(arr[:, s * Cl : (s + 1) * Cl], hw, L)
-            p["cols"] += s * Cl
-            m1 = p["rows"] < bpl
-            for side, sel, base in ((0, m1, 0), (1, ~m1, bpl)):
-                sides[side].append({
-                    "rows": p["rows"][sel] - base + s * bpl,
-                    "score": p["score"][sel], "pos": p["pos"][sel],
-                    "strand": p["strand"][sel],
-                    "cols": p["cols"][sel]})
-
-        def cat(parts):
-            return {
-                "rows": np.concatenate([q["rows"] for q in parts]),
-                "score": np.concatenate([q["score"] for q in parts]),
-                "pos": np.concatenate([q["pos"] for q in parts]),
-                "strand": np.concatenate([q["strand"] for q in parts]),
-                "cols": np.concatenate([q["cols"] for q in parts]),
-                "dops": arr[TB_META_ROWS:], "hw": hw, "L": L,
-            }
-
-        return cat(sides[0]), cat(sides[1])
-
     def finish_batch(self, handle, lengths1, lengths2):
         """The whole pair batch on every rank (an all-gather)."""
-        m = self.mapper
         out, B = handle
-        rpp = m._rps(self.pair_batch)
-        arr, tbmat = m._split(m._gather_owners(out), rpp,
-                              2 * PACKED_COLS + 1, 2 * rpp)
-        res = self._result(arr[:B], lengths1, lengths2, slice(0, B))
-        if tbmat is not None:
-            res.m1.tb, res.m2.tb = self._merge_tb_pairs(tbmat, rpp)
-        return res
+        return self.layout.pairs(self.mapper._gather_owners(out),
+                                 np.asarray(lengths1)[:B],
+                                 np.asarray(lengths2)[:B], self.clip_open)
 
     def finish_batch_local(self, handle, lengths1, lengths2):
         """This rank's pair rows → (PairResult, global pair-row indices);
         see ShardedMapper.finish_batch_local."""
-        m = self.mapper
         out, B = handle
-        rpp = m._rps(self.pair_batch)
-        rows = m._local_rows(B, self.pair_batch)
-        arr, tbmat = m._split(out.cpu().numpy()[None], rpp,
-                              2 * PACKED_COLS + 1, 2 * rpp)
-        res = self._result(arr[: rows.size], lengths1, lengths2, rows)
-        if tbmat is not None and rows.size:
-            res.m1.tb, res.m2.tb = self._merge_tb_pairs(tbmat, rpp)
-        return res, rows
+        rows = self.mapper._local_rows(B, self.pair_batch)
+        return self.layout.pairs(out.cpu().numpy()[None],
+                                 np.asarray(lengths1)[rows],
+                                 np.asarray(lengths2)[rows],
+                                 self.clip_open), rows

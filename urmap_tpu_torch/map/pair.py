@@ -33,15 +33,12 @@ from urmap_tpu_torch.config import (IndexConfig, MapConfig, ScoreConfig,
                                     resolve_suspect_deficits)
 from urmap_tpu_torch.map.dp import NEG, banded_packed
 from urmap_tpu_torch.kernels import rescue_rounds
-from urmap_tpu_torch.map.pipeline import (PACKED_COLS, MapResult, _any,
-                                          _nonzero_padded,
+from urmap_tpu_torch.map.output import Layout, join
+from urmap_tpu_torch.map.pipeline import (MapResult, _any, _nonzero_padded,
                                           candidates_batch_device, clip_mode,
-                                          download,
-                                          merge_tb_batches, pack_out,
-                                          revcomp_batch,
-                                          revcomp_strand_codes, tb_cols,
-                                          tb_pass_device, tb_rows,
-                                          unpack_out, unpack_tb, upload)
+                                          download, revcomp_batch,
+                                          revcomp_strand_codes,
+                                          tb_pass_device, upload)
 from urmap_tpu_torch.map.seed import POS_BIAS
 from urmap_tpu_torch.map.select import host_scalar, select_hits
 from urmap_tpu_torch.utils import trace
@@ -355,12 +352,10 @@ def map_pairs_packed(tables: dict, pk1, nm1, l1, pk2, nm2, l2, *,
                      tb: bool = False, stats: dict | None = None,
                      gather_runner=None, dp_runner=None) -> torch.Tensor:
     """The paired step from the packed upload blocks
-    (genome_pack.pack_read_codes_host) to ONE int32 array, as the
-    reference's make_map_pairs_fn builds it: [Bp, 2*PACKED_COLS + 1]
-    (mate 1's pack_out columns, mate 2's, then proper); with ``tb``
-    flattened and followed by the flattened traceback matrix, so a
-    batch costs one device-to-host copy. ``gather_runner``,
-    ``dp_runner``: see map_pairs_device."""
+    (genome_pack.pack_read_codes_host) to ONE flat int32 array
+    (map/output.py: the calls of both mates and proper, then with
+    ``tb`` the traceback matrix), so a batch costs one device-to-host
+    copy. ``gather_runner``, ``dp_runner``: see map_pairs_device."""
     from urmap_tpu_torch import genome_pack as gpk
 
     L = mcfg.max_read_len
@@ -372,11 +367,7 @@ def map_pairs_packed(tables: dict, pk1, nm1, l1, pk2, nm2, l2, *,
     out = map_pairs_device(tables, r1, l1, r2, l2, icfg=icfg, mcfg=mcfg,
                            sc=sc, tb=tb, stats=stats,
                            gather_runner=gather_runner, dp_runner=dp_runner)
-    packed = torch.cat([pack_out(out["m1"]), pack_out(out["m2"]),
-                        out["proper"].to(torch.int32)[:, None]], dim=1)
-    if tb:
-        return torch.cat([packed.reshape(-1), out["_tb"].reshape(-1)])
-    return packed
+    return Layout(mcfg, l1.shape[0], paired=True, tb=tb).pack(out)
 
 
 # urmap_tpu/map/pair.py:PairResult
@@ -407,6 +398,8 @@ class PairedMapper:
         # one source of truth (pipeline.tb_enabled through the mapper):
         # finish_batch splits the flattened output by it
         self.tb = mapper.tb
+        self.layout = Layout(self.mcfg, self.pair_batch, paired=True,
+                             tb=self.tb)
         # both mates' results record the mapper's clip mode; under
         # end_clip their clip rows keep the host clip DP (the pair path
         # runs no clip traceback)
@@ -450,48 +443,10 @@ class PairedMapper:
         with trace.span("urmap.finish_batch", batch):
             arr = download(out)
             with trace.span("urmap.unpack"):
-                res = self._unpack(arr, B, lengths1, lengths2)
+                res = self.layout.pairs(arr[None], np.asarray(lengths1)[:B],
+                                        np.asarray(lengths2)[:B],
+                                        self.clip_open)
         res.m1.batch = res.m2.batch = batch
-        return res
-
-    def _unpack(self, arr, B, lengths1, lengths2) -> PairResult:
-        tbmat = None
-        Bp = self.pair_batch
-        C = PACKED_COLS
-        if self.tb:
-            split = Bp * (2 * C + 1)
-            tbmat = arr[split:].reshape(tb_rows(self.mcfg),
-                                        tb_cols(2 * Bp, self.mcfg))
-            arr = arr[:split].reshape(Bp, 2 * C + 1)
-        arr = arr[:B]
-        res = PairResult(
-            m1=MapResult.from_device(unpack_out(arr[:, 0:C]),
-                                     np.asarray(lengths1)[:B],
-                                     self.clip_open),
-            m2=MapResult.from_device(unpack_out(arr[:, C : 2 * C]),
-                                     np.asarray(lengths2)[:B],
-                                     self.clip_open),
-            proper=arr[:, 2 * C].astype(bool),
-        )
-        if tbmat is not None:
-            # rows [0, Bp) = mate 1, [Bp, 2Bp) = mate 2 (Bp = the PADDED
-            # pair batch the device step ran at); both mates' dicts
-            # share one dops matrix, filtered by their own rows/cols
-            tb = unpack_tb(tbmat, self.mcfg.band_halfwidth,
-                           self.mcfg.max_read_len)
-            s1 = tb["rows"] < Bp
-
-            def side(sel, base):
-                return {"rows": tb["rows"][sel] - base,
-                        "score": tb["score"][sel],
-                        "pos": tb["pos"][sel],
-                        "strand": tb["strand"][sel],
-                        "cols": tb["cols"][sel],
-                        "dops": tb["dops"], "hw": tb["hw"],
-                        "L": tb["L"]}
-
-            res.m1.tb = side(s1, 0)
-            res.m2.tb = side(~s1, Bp)
         return res
 
     def second_pass(self, codes1, lengths1, codes2, lengths2,
@@ -573,25 +528,9 @@ class PairedMapper:
                 codes2[s:s + bs], lengths2[s:s + bs],
                 self.finish_batch(h, lengths1[s:s + bs],
                                   lengths2[s:s + bs])))
-        if len(outs) == 1:
-            return outs[0]
-
-        def cat_result(results, lengths):
-            fields = {f: np.concatenate([getattr(r, f) for r in results])
-                      for f in ("mapped", "pos", "strand", "score", "second",
-                                "mapq", "gapped", "ungapped", "clipped",
-                                "suspect")}
-            res = MapResult(lengths=np.asarray(lengths)[:B],
-                            clip_open=self.clip_open, **fields)
-            res.tb = merge_tb_batches([r.tb for r in results],
-                                      range(0, B, bs))
-            return res
-
-        return PairResult(
-            m1=cat_result([o.m1 for o in outs], lengths1),
-            m2=cat_result([o.m2 for o in outs], lengths2),
-            proper=np.concatenate([o.proper for o in outs])[:B],
-        )
+        return PairResult(m1=join([o.m1 for o in outs], lengths1),
+                          m2=join([o.m2 for o in outs], lengths2),
+                          proper=np.concatenate([o.proper for o in outs]))
 
     def format_py(self, fwd_batch, rev_batch, res: PairResult) -> list[str]:
         """Pure-Python SAM records for an already-mapped pair batch."""

@@ -9,8 +9,9 @@ One batch, both strands in one [2B] block:
                              → clip-rescue DP lane (B1, clip mode)
                              → select + weak/suspect MAPQ gates
                              → traceback of the gapped winners (B6)
-                             → one flat int32 output: packed [B, 3]
-                               calls, then the traceback matrix
+                             → one flat int32 output (map/output.py):
+                               packed [B, 3] calls, then the traceback
+                               matrices
 
 A port of urmap_tpu/map/pipeline.py (candidates_batch_device,
 map_batch_device, tb_pass_device, pack_out, Mapper): the same stages,
@@ -999,6 +1000,13 @@ class Mapper:
         self.second = (WideSecondPass(index, self.mcfg, self.sc)
                        if self.mcfg.second_pass_p else None)
 
+    @property
+    def layout(self):
+        """A batch's flat output (map/output.py) at the current mcfg."""
+        from urmap_tpu_torch.map.output import Layout
+
+        return Layout(self.mcfg, self.mcfg.batch_size, tb=self.tb)
+
     def second_pass(self, codes: np.ndarray, lengths,
                     result: MapResult) -> MapResult:
         """Re-map ``result``'s unmapped and suspect rows through the
@@ -1054,15 +1062,7 @@ class Mapper:
                                    packed_reads=(upload(pk, self.device),
                                                  upload(nm, self.device)),
                                    tb=self.tb, clip_tb=self.clip_tb)
-            packed = pack_out(out)
-            mats = ([out["_tb"]] if self.tb else []) \
-                + ([out["_clip_tb"]] if "_clip_tb" in out else [])
-            if mats:
-                # one array, one device-to-host copy; finish_batch splits
-                # it by the known sizes (under the rescue rule the clip
-                # matrix only where the clip-rescue lane ran)
-                packed = torch.cat([packed.reshape(-1)]
-                                   + [m.reshape(-1) for m in mats])
+            packed = self.layout.pack(out)
         return packed, B, batch
 
     def finish_batch(self, handle, lengths) -> MapResult:
@@ -1070,33 +1070,14 @@ class Mapper:
         with trace.span("urmap.finish_batch", batch):
             arr = download(out)
             with trace.span("urmap.unpack"):
-                tbmat = clipmat = None
-                if self.tb or self.clip_tb:
-                    bs = self.mcfg.batch_size
-                    end = split = bs * PACKED_COLS
-                    if self.tb:
-                        C = tb_cols(bs, self.mcfg)
-                        end = split + tb_rows(self.mcfg) * C
-                        tbmat = arr[split:end].reshape(tb_rows(self.mcfg), C)
-                    if arr.size > end:
-                        clipmat = arr[end:].reshape(
-                            clip_tb_rows(self.mcfg),
-                            clip_tb_cols(bs, self.mcfg))
-                    arr = arr[:split].reshape(bs, PACKED_COLS)
-                merged = {k: v[:B] for k, v in unpack_out(arr).items()}
-                res = MapResult.from_device(merged, np.asarray(lengths)[:B],
-                                            self.clip_open)
-                if tbmat is not None:
-                    res.tb = unpack_tb(tbmat, self.mcfg.band_halfwidth,
-                                       self.mcfg.max_read_len)
-                if clipmat is not None:
-                    res.clip_tb = unpack_clip_tb(clipmat)
-                    clip_tb_past(res, self.mcfg, clipmat.shape[1],
-                                 self.mcfg.batch_size)
+                res = self.layout.result(arr[None], np.asarray(lengths)[:B],
+                                         self.clip_open)
         res.batch = batch
         return res
 
     def map_codes(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:
+        from urmap_tpu_torch.map.output import join
+
         B = codes.shape[0]
         bs = self.mcfg.batch_size
         outs = [self.second_pass(
@@ -1105,17 +1086,4 @@ class Mapper:
                                                        lengths[s : s + bs]),
                                       lengths[s : s + bs]))
                 for s in range(0, B, bs)]
-        if len(outs) == 1:
-            return outs[0]
-        merged = {f: np.concatenate([getattr(o, f) for o in outs])
-                  for f in ("mapped", "pos", "strand", "score", "second",
-                            "mapq", "gapped", "ungapped", "clipped",
-                            "suspect")}
-        res = MapResult(lengths=np.asarray(lengths)[:B],
-                        clip_open=outs[0].clip_open, **merged)
-        # keep the device traceback across the multi-batch merge, or
-        # every gapped winner pays the host DP again
-        res.tb = merge_tb_batches([o.tb for o in outs], range(0, B, bs))
-        res.clip_tb = merge_clip_tb([o.clip_tb for o in outs],
-                                    range(0, B, bs))
-        return res
+        return join(outs, lengths)
